@@ -1,0 +1,182 @@
+"""Batched Vecchia sparse inverse-Cholesky operations, chains leading.
+
+Port of ``nngp_tpu/ops/vecchia.py``.  Every function takes the chains as
+the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
+[C, n, m+1], fields are [C, n].
+
+- ``vecchia_linv``: for every site i, the (m+1)x(m+1) correlation of its
+  neighbour set, an m x m Cholesky unrolled over the static neighbour count
+  (elementwise over [C, n], no batched-LAPACK loop) and row i of L.
+- ``linv_mult`` / ``linv_t_mult``: L x and L' z by gather and scatter-add.
+- ``precision_diag_and_q_edges``: the nonzeros of Q = L'L by one
+  scatter-add over the moralized-edge map.
+- ``nngp_loglik`` / ``nngp_loglik_diff``: the Vecchia log-density, and the
+  MH ratio of two factors as one float64-accumulated sum of per-site
+  differences (the role of ``nngp_tpu``'s double-float ``df_sum``).
+
+Compressed-row convention (same as GpGp): row i of L has entries at columns
+NNarray[i, :] = [i, parents...]; linv[..., i, 0] is the diagonal.
+
+On CUDA, ``index_add_`` is atomic, so the summation order of the
+scatter-adds (``linv_t_mult``, ``precision_diag_and_q_edges``) changes from
+run to run: results agree to float32 rounding, not bit for bit.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
+
+
+def sum64(x: torch.Tensor, dim=-1) -> torch.Tensor:
+    """Sum accumulated in float64, returned in x's dtype."""
+    return x.double().sum(dim).to(x.dtype)
+
+
+def _unrolled_cholesky(K: torch.Tensor, k: int) -> list:
+    """Cholesky of [..., k, k] SPD matrices, unrolled over the static k;
+    the lower factor as a k x k list of [...] tensors (None above the
+    diagonal)."""
+    L = [[None] * k for _ in range(k)]
+    for j in range(k):
+        s = K[..., j, j]
+        for t in range(j):
+            s = s - L[j][t] * L[j][t]
+        L[j][j] = torch.sqrt(torch.clamp_min(s, 1e-12))
+        inv_ljj = 1.0 / L[j][j]
+        for i in range(j + 1, k):
+            s = K[..., i, j]
+            for t in range(j):
+                s = s - L[i][t] * L[j][t]
+            L[i][j] = s * inv_ljj
+    return L
+
+
+def _forward_solve(L: list, b: list, k: int) -> list:
+    """Solve L y = b with the unrolled lower factor."""
+    y = [None] * k
+    for i in range(k):
+        s = b[i]
+        for t in range(i):
+            s = s - L[i][t] * y[t]
+        y[i] = s / L[i][i]
+    return y
+
+
+def _backward_solve(L: list, y: list, k: int) -> list:
+    """Solve L' z = y."""
+    z = [None] * k
+    for i in range(k - 1, -1, -1):
+        s = y[i]
+        for t in range(i + 1, k):
+            s = s - L[t][i] * z[t]
+        z[i] = s / L[i][i]
+    return z
+
+
+def linv_rows_from_K(K: torch.Tensor, mask: torch.Tensor,
+                     d_floor: float = 1e-12) -> torch.Tensor:
+    """Compressed factor rows [..., m+1] from neighbour-set correlations
+    K [..., m+1, m+1] and the validity mask [n, m+1]: the conditional of
+    position 0 given positions 1..m, with the conditional variance floored
+    at ``d_floor``."""
+    k = K.shape[-1]
+    m = k - 1
+    # force padded rows/cols to identity
+    valid2 = mask[..., :, None] * mask[..., None, :]
+    eye = torch.eye(k, dtype=K.dtype, device=K.device)
+    K = K * valid2 + eye * (1.0 - valid2)
+    if m == 0:
+        return torch.ones(K.shape[:-2] + (1,), dtype=K.dtype, device=K.device)
+    L = _unrolled_cholesky(K[..., 1:, 1:], m)
+    kni = [K[..., 1 + j, 0] for j in range(m)]
+    u = _forward_solve(L, kni, m)
+    d = K[..., 0, 0]
+    for j in range(m):
+        d = d - u[j] * u[j]
+    d = torch.clamp_min(d, d_floor)
+    b = _backward_solve(L, u, m)
+    inv_sqrt_d = torch.rsqrt(d)
+    rows = [inv_sqrt_d] + [
+        -b[j] * inv_sqrt_d * mask[..., 1 + j] for j in range(m)
+    ]
+    return torch.stack(rows, dim=-1)
+
+
+def vecchia_linv(graph, natural_shape: torch.Tensor) -> torch.Tensor:
+    """Compressed inverse-Cholesky factor [C, n, m+1] for natural shape
+    params [C, n_shape].
+
+    Row i encodes the conditional N(x_i | x_parents):
+      linv[i, 0]   = 1/sqrt(d_i)
+      linv[i, 1:j] = -b_ij / sqrt(d_i)
+    where b = Knn^-1 Kni and d = 1 - Kni' b.  Padded parent slots produce
+    exact zeros.  The correlations come from the host-f64 ``nn_dist2``, so
+    no coordinate cancellation enters the factor."""
+    K = correlation_from_sqdist(graph.covfun, graph.nn_dist2, natural_shape)
+    return linv_rows_from_K(K, graph.nn_mask, graph.d_floor)
+
+
+def linv_mult(linv: torch.Tensor, x: torch.Tensor, graph) -> torch.Tensor:
+    """y = L x per chain (GpGp::Linv_mult, mcmc_nngp_update_Gaussian.R:10).
+    x: [C, n] -> [C, n], or [C, n, c] -> [C, n, c]."""
+    nn = torch.clamp_min(graph.NNarray, 0)
+    if x.dim() == 2:
+        vals = x[:, nn] * graph.nn_mask                    # [C, n, k]
+        return torch.sum(linv * vals, dim=-1)
+    vals = x[:, nn] * graph.nn_mask[..., None]             # [C, n, k, c]
+    return torch.sum(linv[..., None] * vals, dim=-2)
+
+
+def linv_t_mult(linv: torch.Tensor, z: torch.Tensor, graph) -> torch.Tensor:
+    """y = L' z per chain by scatter-add over the compressed rows."""
+    nn = torch.clamp_min(graph.NNarray, 0).reshape(-1)
+    vals = (linv * graph.nn_mask * z[..., None]).reshape(z.shape[0], -1)
+    return torch.zeros_like(z).index_add_(1, nn, vals)
+
+
+def precision_diag_and_q_edges(linv: torch.Tensor, graph):
+    """Nonzeros of Q = L'L per chain: (diagonal [C, n], moralized-edge
+    values [C, E+1]).  The trailing slot E accumulates the padded position
+    pairs, whose products are exact zeros."""
+    C = linv.shape[0]
+    nn = torch.clamp_min(graph.NNarray, 0).reshape(-1)
+    masked = linv * graph.nn_mask
+    pdiag = torch.zeros(C, graph.n, dtype=linv.dtype, device=linv.device)
+    pdiag.index_add_(1, nn, (masked * masked).reshape(C, -1))
+    prods = masked[:, :, graph.pair_a] * masked[:, :, graph.pair_b]   # [C, n, P]
+    q_edges = torch.zeros(C, graph.n_edges + 1, dtype=linv.dtype,
+                          device=linv.device)
+    q_edges.index_add_(1, graph.pair_edge_id.reshape(-1), prods.reshape(C, -1))
+    return pdiag, q_edges
+
+
+def nngp_loglik(linv: torch.Tensor, field: torch.Tensor, graph,
+                log_scale: torch.Tensor) -> torch.Tensor:
+    """Vecchia log-density [C] of centered fields [C, n] under scale
+    exp(log_scale) (ll_compressed_sparse_chol,
+    mcmc_nngp_update_Gaussian.R:8-12; the -n/2 log(2 pi) constant dropped):
+      sum(log diag(L)) - n/2 log_scale - 0.5 ||L field||^2 / exp(log_scale)
+    """
+    z = linv_mult(linv, field, graph)
+    return (sum64(torch.log(linv[..., 0]))
+            - 0.5 * graph.n * log_scale
+            - 0.5 * sum64(z * z) * torch.exp(-log_scale))
+
+
+def nngp_loglik_diff(linv_new, log_scale_new, linv_old, log_scale_old,
+                     field, graph) -> torch.Tensor:
+    """nngp_loglik(new) - nngp_loglik(old) per chain as ONE float64 sum of
+    per-site differences: each summand stays proposal-sized, so no
+    ~1e4-magnitude totals cancel in float32 (mcmc_nngp_update_Gaussian.R
+    :184-186 computes this in doubles)."""
+    z_new = linv_mult(linv_new, field, graph)
+    z_old = linv_mult(linv_old, field, graph)
+    c_new = torch.exp(-log_scale_new)[:, None]
+    c_old = torch.exp(-log_scale_old)[:, None]
+    # log(a/b) for a ~ b as log1p((a-b)/b): the subtraction is exact
+    a, b = linv_new[..., 0], linv_old[..., 0]
+    terms = (torch.log1p((a - b) / b)
+             - 0.5 * (z_new * z_new * c_new - z_old * z_old * c_old))
+    return sum64(terms) - 0.5 * graph.n * (log_scale_new - log_scale_old)
