@@ -7,7 +7,7 @@ Phases, each printed with its result and time; any failure ends the run
 with a nonzero exit and no "ok" line:
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc builds the chromatic sweep kernel from csrc/
+  2. build        nvcc builds the three CUDA sources of csrc/, all at once
   3. small parity 3 Gibbs iterations of a 400-site problem on the card
                   against the same iterations on the CPU (whose path the
                   tests hold against nngp_tpu), same injected draws
@@ -17,7 +17,15 @@ with a nonzero exit and no "ok" line:
   5. kernel       the sweep kernel against its plain PyTorch version on
                   that graph (3 chains, 10 sweeps), zero and injected
                   noise, tolerance 2e-3 * max(1, |w|_inf); median times
-  6. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
+  6. gather probes the four kernels of the gather microbenchmarks
+                  (nngp_tpu_torch/experiments: X1 gather_bench, X2
+                  gather_probe, X3 gather_probe2) at the scripts' full
+                  shapes, each against its plain PyTorch twin: the DSMEM
+                  sweep within 1e-5 * max(1, |w|_inf) at every cluster
+                  size, gathers/roll/transpose/scatter exactly, the matmul
+                  within 1e-5 * max(1, |C|_inf); then the three entry
+                  points, with each kernel's launch count from that run
+  7. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
                   estimate, with the kernel's launch count from that run
                   only; then 25 more iterations to time a warm cycle
 
@@ -29,30 +37,19 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 TOL_REL = 2e-3      # kernel against plain: 2e-3 * max(1, |w|_inf)
 PARITY_TOL = 1e-3   # card against CPU after 3 iterations, same scaling
+# X1 kernel against plain: float32 neighbour sums in another order and
+# rsqrtf, through 600 dependent steps of a linear map whose field grows to
+# ~6e14, so the error is held relative to |w|_inf
+X1_TOL_REL = 1e-5
+MM_TOL_REL = 1e-5   # matmul against plain: 1e-5 * max(1, |C|_inf)
 
 
 def phase(name, msg, t0):
     print(f"[{name}] {msg} ({time.perf_counter() - t0:.3f} s)", flush=True)
-
-
-def median_ms(fn, reps, setup=lambda: None):
-    import torch
-
-    times = []
-    for _ in range(reps):
-        setup()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        torch.cuda.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
 
 
 def small_parity(dev):
@@ -113,6 +110,7 @@ def kernel_vs_plain(mc):
 
     from nngp_tpu_torch.models import gaussian as G
     from nngp_tpu_torch.ops import sweep
+    from nngp_tpu_torch.experiments.timing import median_ms
     from nngp_tpu_torch.ops.covariance import shape_transform
     from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
@@ -154,6 +152,84 @@ def kernel_vs_plain(mc):
     return out
 
 
+def gather_probes(dev):
+    """The four gather-probe kernels against their plain twins at the
+    scripts' shapes, then the three entry points with counted launches."""
+    import torch
+
+    from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
+                                            gather_probe, gather_probe2)
+
+    torch.backends.cuda.matmul.allow_tf32 = False   # the matmul twin: FP32
+    err = {}
+
+    def held(name, got, want, tol):
+        if got.shape != want.shape or got.dtype != want.dtype:
+            raise RuntimeError(f"{name}: kernel gives {got.dtype} "
+                               f"{tuple(got.shape)}, plain version "
+                               f"{want.dtype} {tuple(want.shape)}")
+        diff = (got - want).abs().max().item() if got.numel() else 0.0
+        ok = bool(torch.isfinite(got).all()) and diff <= tol
+        print(f"  {name}: max abs diff {diff:.3e}, tol {tol:.3e} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{name}: kernel disagrees with plain version")
+        return diff
+
+    t = gather_bench.inputs(dev)
+    args = gather_bench.sweep_args(t)
+    want = gather_ops.gather_sweeps_reference(t["w0"].clone(), *args)
+    tol = X1_TOL_REL * max(1.0, want.abs().max().item())
+    err["gather_sweeps"] = max(
+        held(f"X1 gather_sweeps cluster {cs}",
+             gather_ops.gather_sweeps(t["w0"].clone(), *args, cluster=cs),
+             want, tol)
+        for cs in gather_ops.CLUSTERS)
+    for mod, arrays in ((gather_probe, data.probe_arrays()),
+                        (gather_probe2, data.probe2_arrays())):
+        for p in mod.probes(data.to_device(arrays, dev)):
+            want = p.plain(*p.args)
+            tol = (MM_TOL_REL * max(1.0, want.abs().max().item())
+                   if p.op is gather_ops.matmul_f32 else 0.0)
+            name = p.op.__name__
+            err[name] = max(err.get(name, 0.0),
+                            held(f"{mod.__name__.rsplit('.', 1)[1]}: "
+                                 f"{p.name}", p.op(*p.args), want, tol))
+    torch.cuda.synchronize()
+
+    ops = (gather_ops.gather_sweeps, gather_ops.staged_gather,
+           gather_ops.column_scatter, gather_ops.matmul_f32)
+    for op in ops:
+        op.launches = 0
+    x1 = gather_bench.main()
+    probes = gather_probe.main() + gather_probe2.main()
+    torch.cuda.synchronize()
+    out = {op.__name__: {"launches": op.launches,
+                         "max_abs_err": err[op.__name__]} for op in ops}
+    for name, o in out.items():
+        if o["launches"] == 0:
+            raise RuntimeError(f"the gather probes launched {name} no time")
+    out["gather_sweeps"].update(ms=x1[gather_ops.CLUSTER],
+                                plain_ms=x1["plain_ms"])
+    for name in ("staged_gather", "column_scatter", "matmul_f32"):
+        rows = [r for r in probes if r["op"] == name]
+        out[name].update(ms=sum(r["ms"] for r in rows),
+                         plain_ms=sum(r["plain_ms"] for r in rows))
+    return out
+
+
+GATHER_KERNELS = (
+    ("gather_sweeps", "nngp_tpu_torch/csrc/gather_sweep.cu",
+     "experiments/gather_bench.py:92"),
+    ("staged_gather", "nngp_tpu_torch/csrc/gather_probes.cu",
+     "experiments/gather_probe.py:27,42; experiments/gather_probe2.py:29"),
+    ("column_scatter", "nngp_tpu_torch/csrc/gather_probes.cu",
+     "experiments/gather_probe.py:27,42 (k_scat :82)"),
+    ("matmul_f32", "nngp_tpu_torch/csrc/gather_probes.cu",
+     "experiments/gather_probe.py:27,42 (k_mm :93)"),
+)
+
+
 def main():
     t0 = time.perf_counter()
     import numpy as np
@@ -164,6 +240,7 @@ def main():
               "False)", file=sys.stderr)
         return 1
     import nngp_tpu_torch
+    from nngp_tpu_torch.experiments import gather_ops
     from nngp_tpu_torch.ops import _build, sweep
     from nngp_tpu_torch.preprocess.coloring import dag_levels
     from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
@@ -178,10 +255,17 @@ def main():
     phase("device", kind, t0)
 
     t = time.perf_counter()
-    sweep._library()
-    ptxas = [l.strip() for l in _build.build_log("chromatic_sweep").splitlines()
-             if "registers" in l or "spill" in l]
-    phase("build", "chromatic_sweep.cu -> sm_90a; " + " | ".join(ptxas), t)
+    libs = {"chromatic_sweep": sweep._library,
+            "gather_sweep": gather_ops._sweep_library,
+            "gather_probes": gather_ops._probe_library}
+    with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
+        for f in [pool.submit(build) for build in libs.values()]:
+            f.result()
+    for name in libs:
+        ptxas = [l.strip() for l in _build.build_log(name).splitlines()
+                 if "registers" in l or "spill" in l]
+        print(f"  {name}.cu -> sm_90a: " + " | ".join(ptxas))
+    phase("build", f"{len(libs)} sources built in parallel", t)
 
     t = time.perf_counter()
     worst = small_parity(dev)
@@ -205,6 +289,12 @@ def main():
     kv = kernel_vs_plain(mc)
     phase("kernel", f"{kv['shape']}: kernel {kv['ms']:.3f} ms, plain "
           f"{kv['plain_ms']:.3f} ms (median)", t)
+
+    t = time.perf_counter()
+    gp = gather_probes(dev)
+    phase("gather probes", "kernel / plain ms: " + ", ".join(
+        f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} ({v['launches']} launches)"
+        for k, v in gp.items()), t)
 
     t = time.perf_counter()
     sweep.chromatic_sweeps.launches = 0
@@ -247,7 +337,9 @@ def main():
         "source": "nngp_tpu_torch/csrc/chromatic_sweep.cu",
         "replaces": "nngp_tpu/ops/pallas_sweep.py:159",
         "launches": launches, "max_abs_err": kv["max_abs_err"],
-        "ms": kv["ms"], "plain_ms": kv["plain_ms"]}]}))
+        "ms": kv["ms"], "plain_ms": kv["plain_ms"]}] + [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         **gp[name]} for name, src, rep in GATHER_KERNELS]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

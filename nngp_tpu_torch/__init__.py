@@ -5,7 +5,8 @@ It imports torch and never jax: the host preprocessing is a NumPy copy of
 ``nngp_tpu``'s, the device code is plain PyTorch with chains as the leading
 tensor dimension, and the chromatic Gibbs sweep — a Pallas kernel in
 ``nngp_tpu`` — is a hand-written CUDA kernel (``csrc/chromatic_sweep.cu``)
-with a plain PyTorch twin for CPU tensors.
+with a plain PyTorch twin for CPU tensors.  ``nngp_tpu_torch.experiments``
+runs the gather microbenchmarks of ``experiments/`` on CUDA kernels.
 
 Public API: ``initialize`` -> ``run`` -> ``estimate``, plus the diagnostics
 ``Gelman_Rubin_Brooks`` and ``ESS``.

@@ -37,10 +37,11 @@
 // cluster of kClusterBlocks SMs.  Measured at 3 chains, n = 64,274, 10
 // sweeps on an H100 SXM at 700 W: one block per chain, one neighbour at a
 // time, 21.5 ms per call; a cluster of 8, one at a time, 8.2 ms; a cluster
-// of 8 with 8 in flight, 4.5 ms.  Keeping the field in the cluster's
-// distributed shared memory, ordering a colour's sites by degree (a warp
-// waits for its highest-degree site; mean degree 14, max 89) and
-// coalescing the neighbour-table reads are later work.
+// of 8 with 8 in flight, 4.5 ms.  Ordering a colour's sites by degree (a
+// warp waits for its highest-degree site; mean degree 14, max 89) and
+// coalescing the neighbour-table reads are later work.  Keeping the field
+// in the cluster's distributed shared memory is not: on the same card,
+// random gathers from it were slower than from L2 (csrc/gather_sweep.cu).
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (nngp_tpu_torch/ops/_build.py); no fast-math.

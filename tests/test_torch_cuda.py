@@ -14,6 +14,8 @@ import pytest
 import torch
 
 import nngp_tpu_torch
+from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
+                                        gather_probe, gather_probe2)
 from nngp_tpu_torch.models import gaussian as G
 from nngp_tpu_torch.ops import sweep
 from nngp_tpu_torch.ops.covariance import shape_transform
@@ -118,3 +120,101 @@ def test_gibbs_iterations_card_match_cpu():
         b = getattr(card[0], f).cpu().numpy()
         np.testing.assert_allclose(b, a, atol=1e-3 * max(1.0, np.abs(a).max()),
                                    err_msg=f)
+
+
+# --- the gather probes' kernels (nngp_tpu_torch/experiments) ---------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", gather_ops.CLUSTERS)
+def test_gather_sweeps_matches_plain(cluster):
+    """X1's DSMEM kernel against its plain twin at the script's shapes;
+    tolerance 1e-5 * max(1, |w|_inf) (float32 sums in another order through
+    600 dependent steps of a map whose field grows to ~6e14)."""
+    dev = _card()
+    t = gather_bench.inputs(dev)
+    args = gather_bench.sweep_args(t)
+    before = gather_ops.gather_sweeps.launches
+    got = gather_ops.gather_sweeps(t["w0"].clone(), *args, cluster=cluster)
+    want = gather_ops.gather_sweeps_reference(t["w0"].clone(), *args)
+    torch.cuda.synchronize()
+    assert gather_ops.gather_sweeps.launches == before + 1
+    assert torch.isfinite(got).all()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize(
+    "script,index", [("probe", i) for i in range(5)]
+    + [("probe2", i) for i in range(7)])
+def test_probe_kernel_matches_plain(monkeypatch, script, index):
+    """Gathers, roll, transpose and scatter exactly; the matmul within
+    1e-5 * max(1, |C|_inf) of the FP32 product (TF32 off)."""
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    mod, make = {"probe": (gather_probe, data.probe_arrays),
+                 "probe2": (gather_probe2, data.probe2_arrays)}[script]
+    p = mod.probes(data.to_device(make(), dev))[index]
+    before = p.op.launches
+    got = p.op(*p.args)
+    want = p.plain(*p.args)
+    torch.cuda.synchronize()
+    assert p.op.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if p.op is gather_ops.matmul_f32:
+        tol = 1e-5 * max(1.0, want.abs().max().item())
+        assert (got - want).abs().max().item() <= tol
+    else:
+        assert torch.equal(got, want)
+
+
+def _gather_cases(dev):
+    """Per wrapper: good arguments, and (exception, bad arguments) pairs."""
+    i32 = dict(dtype=torch.int32, device=dev)
+    NB, B = 2, 32
+    sw = dict(w=torch.zeros(64, device=dev),
+              sites=torch.zeros(NB, B, **i32),
+              nbrs=torch.zeros(NB, B, 16, **i32),
+              q=torch.zeros(NB, B, 16, device=dev),
+              P=torch.ones(NB, B, device=dev),
+              noise=torch.zeros(1, NB, B, device=dev),
+              keep=torch.ones(NB, B, dtype=torch.bool, device=dev))
+    idx = torch.zeros(8, 4, **i32)
+    sg = dict(src=torch.zeros(8, 4, device=dev), stages=[("rows", idx)])
+    cs = dict(val=torch.zeros(8, 4, device=dev), idx=idx, n_rows=4)
+    mm = dict(a=torch.zeros(8, 8, device=dev), b=torch.zeros(8, 4, device=dev))
+    return {
+        "gather_sweeps": (sw, [
+            (TypeError, {**sw, "nbrs": sw["nbrs"].long()}),
+            (ValueError, {**sw, "P": sw["P"].cpu()}),
+            (ValueError, {**sw, "q": torch.zeros(NB, B, 8, device=dev)}),
+            (ValueError, {**sw, "cluster": 3})]),
+        "staged_gather": (sg, [
+            (TypeError, {**sg, "stages": [("rows", idx.long())]}),
+            (ValueError, {**sg, "stages": [("rows", idx.cpu())]}),
+            (TypeError, {**sg, "src": sg["src"].double()})]),
+        "column_scatter": (cs, [
+            (TypeError, {**cs, "idx": idx.long()}),
+            (ValueError, {**cs, "idx": idx.cpu()}),
+            (ValueError, {**cs, "idx": torch.zeros(8, 2, **i32)})]),
+        "matmul_f32": (mm, [
+            (TypeError, {**mm, "b": mm["b"].double()}),
+            (ValueError, {**mm, "b": mm["b"].cpu()}),
+            (ValueError, {**mm, "b": torch.zeros(6, 4, device=dev)}),
+            (ValueError, {"a": torch.zeros(8, 6, device=dev),
+                          "b": torch.zeros(6, 4, device=dev)})]),
+    }
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["gather_sweeps", "staged_gather",
+                                  "column_scatter", "matmul_f32"])
+def test_gather_kernel_rejects_bad_inputs(name):
+    dev = _card()
+    op = getattr(gather_ops, name)
+    good, bad = _gather_cases(dev)[name]
+    op(**good)
+    torch.cuda.synchronize()
+    for exc, kw in bad:
+        with pytest.raises(exc):
+            op(**kw)

@@ -1,0 +1,342 @@
+"""The gather microbenchmarks of the port (nngp_tpu_torch/experiments)
+against the JAX scripts experiments/gather_bench.py, gather_probe.py and
+gather_probe2.py, on the CPU.
+
+The scripts are loaded from their files (experiments/ is not a package);
+their bodies are local to ``main()``, so each is restated here verbatim and
+run both as its jnp expression and through ``pl.pallas_call(...,
+interpret=True)``.  The CUDA kernels against the plain twins are in
+tests/test_torch_cuda.py.
+
+Tolerances: the data bit for bit; gathers, roll, transpose and scatter
+exactly (atol 0); the X1 sweeps within 1e-5 * max(1, |w|_inf) (float32
+sums in another order through 600 dependent steps of a linear map whose
+field grows to ~6e14); the matmul within 1e-5 * max(1, |C|_inf) (float32
+sums of 1,024 products in another order: elementwise, a near-zero entry
+differs by a large relative amount between any two summation orders).
+"""
+
+import copy
+import importlib.util
+import os
+import pathlib
+import types
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+from jax import lax
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+import pytest
+import torch
+
+from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
+                                        gather_probe, gather_probe2)
+from nngp_tpu_torch.ops import _build
+
+torch.set_num_threads(1)
+
+EXPERIMENTS = pathlib.Path(__file__).resolve().parents[1] / "experiments"
+REL_TOL = 1e-5
+
+
+def _load(name):
+    """experiments/<name>.py as a module.  On import the scripts create a
+    cache folder and set jax's compilation cache directory: the folder is
+    not created, and the setting is restored."""
+    spec = importlib.util.spec_from_file_location(
+        f"experiments_{name}", EXPERIMENTS / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    before = jax.config.jax_compilation_cache_dir
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(os, "makedirs", lambda *a, **k: None)
+        try:
+            spec.loader.exec_module(mod)
+        finally:
+            jax.config.update("jax_compilation_cache_dir", before)
+    return mod
+
+
+@pytest.fixture(scope="module")
+def scripts():
+    return types.SimpleNamespace(bench=_load("gather_bench"),
+                                 probe=_load("gather_probe"),
+                                 probe2=_load("gather_probe2"))
+
+
+def _main_draws(script, mod):
+    """What the script's main() draws after its module-level arrays, in
+    its order, from a copy of its generator."""
+    rng = copy.deepcopy(mod.rng)
+    if script == "probe":
+        R, C, RI = mod.R, mod.C, mod.RI
+        return {"x2": rng.normal(size=(RI, C)).astype(np.float32),
+                "scat_val": rng.normal(size=(RI, C)).astype(np.float32),
+                "scat_idx": rng.integers(0, R, size=(RI, C)).astype(np.int32),
+                "mm_a": rng.normal(size=(R, RI)).astype(np.float32),
+                "mm_b": rng.normal(size=(RI, C)).astype(np.float32)}
+    if script == "probe2":
+        R, C = mod.R, mod.C
+        return {"src_big": rng.normal(size=(4096, C)).astype(np.float32),
+                "idx_small": rng.integers(0, 4096, size=(512, C)).astype(np.int32),
+                "srci": rng.integers(0, 99, size=(R, C)).astype(np.int32)}
+    return {}
+
+
+MODULE_ARRAYS = {
+    "bench": (data.bench_arrays, ("w0", "sites", "nbrs", "q", "P", "noise")),
+    "probe": (data.probe_arrays, ("src", "row_idx", "lane_idx")),
+    "probe2": (data.probe2_arrays, ("src", "idx_eq", "lane_idx")),
+}
+
+
+@pytest.mark.parametrize("script", sorted(MODULE_ARRAYS))
+def test_data_bit_identical(scripts, script):
+    mod = getattr(scripts, script)
+    make, names = MODULE_ARRAYS[script]
+    port = make()
+    want = {k: np.asarray(getattr(mod, k)) for k in names}
+    want.update(_main_draws(script, mod))
+    assert set(port) == set(want)
+    for k, v in want.items():
+        assert port[k].dtype == v.dtype and port[k].shape == v.shape, k
+        assert np.array_equal(port[k], v), k
+
+
+def test_x1_plain_matches_xla_sweeps(scripts):
+    want = np.asarray(scripts.bench.xla_sweeps(scripts.bench.w0,
+                                                scripts.bench.noise))
+    t = gather_bench.inputs("cpu")
+    before = gather_ops.gather_sweeps.launches
+    got = gather_ops.gather_sweeps(t["w0"].clone(),
+                                   *gather_bench.sweep_args(t)).numpy()
+    assert gather_ops.gather_sweeps.launches == before
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=REL_TOL * max(1.0, np.abs(want).max()))
+
+
+# --- X2 / X3: each body of main(), restated verbatim from the script ------
+
+def k_sub(src_ref, idx_ref, out_ref):
+    out_ref[:] = jnp.take_along_axis(src_ref[:], idx_ref[:], axis=0)
+
+
+def k_lane(src_ref, idx_ref, out_ref):
+    out_ref[:] = jnp.take_along_axis(src_ref[:], idx_ref[:], axis=1)
+
+
+def k_chain(src_ref, ridx_ref, lidx_ref, out_ref):
+    a = jnp.take_along_axis(src_ref[:], ridx_ref[:], axis=0)
+    out_ref[:] = jnp.take_along_axis(a, lidx_ref[:], axis=1)
+
+
+def k_scat(val_ref, idx_ref, out_ref):
+    out_ref[:] = jnp.zeros_like(out_ref)
+    cur = out_ref[:]
+    out_ref[:] = cur.at[idx_ref[:, 0], 0].set(val_ref[:, 0])
+
+
+def k_mm(oh_ref, val_ref, out_ref):
+    out_ref[:] = jnp.dot(oh_ref[:], val_ref[:],
+                         preferred_element_type=jnp.float32)
+
+
+def k_benes(src_ref, a_ref, b_ref, c_ref, out_ref):
+    x = jnp.take_along_axis(src_ref[:], a_ref[:], axis=1)
+    y = jnp.take_along_axis(x, b_ref[:], axis=0)
+    out_ref[:] = jnp.take_along_axis(y, c_ref[:], axis=1)
+
+
+def k_roll(src_ref, out_ref):
+    out_ref[:] = pltpu.roll(src_ref[:], 3, 0)
+
+
+def k_tr(src_ref, out_ref):
+    out_ref[:] = src_ref[: data.C, :].T
+
+
+HIGHEST = lax.Precision.HIGHEST
+take = jnp.take_along_axis
+# (script, index in the port's probes()): the Pallas body, its jnp
+# expression, and the names of its arguments
+BODIES = {
+    ("probe", 0): (k_sub, lambda s, i: take(s, i, axis=0), ("src", "row_idx")),
+    ("probe", 1): (k_lane, lambda s, i: take(s, i, axis=1), ("x2", "lane_idx")),
+    ("probe", 2): (k_chain, lambda s, r, c: take(take(s, r, axis=0), c, axis=1),
+                   ("src", "row_idx", "lane_idx")),
+    ("probe", 3): (k_scat, lambda v, i: jnp.zeros((data.R, data.C), jnp.float32)
+                   .at[i[:, 0], 0].set(v[:, 0]), ("scat_val", "scat_idx")),
+    ("probe", 4): (k_mm, lambda a, b: jnp.dot(a, b, precision=HIGHEST),
+                   ("mm_a", "mm_b")),
+    ("probe2", 0): (k_sub, lambda s, i: take(s, i, axis=0), ("src", "idx_eq")),
+    ("probe2", 1): (k_lane, lambda s, i: take(s, i, axis=1), ("src", "lane_idx")),
+    ("probe2", 2): (k_benes, lambda s, a, b, c: take(take(take(
+        s, a, axis=1), b, axis=0), c, axis=1),
+        ("src", "lane_idx", "idx_eq", "lane_idx")),
+    ("probe2", 3): (k_roll, lambda s: jnp.roll(s, 3, 0), ("src",)),
+    ("probe2", 4): (k_tr, lambda s: s[: data.C].T, ("src",)),
+    ("probe2", 5): (k_sub, lambda s, i: take(s, i, axis=0),
+                    ("src_big", "idx_small")),
+    ("probe2", 6): (k_lane, lambda s, i: take(s, i, axis=1), ("srci", "lane_idx")),
+}
+PROBE_IDS = [f"{s}-{i}" for s, i in BODIES]
+
+
+def _jax_args(scripts, script, names):
+    mod = getattr(scripts, script)
+    extra = _main_draws(script, mod)
+    return [jnp.asarray(extra[n]) if n in extra else getattr(mod, n)
+            for n in names]
+
+
+def _port(script, index):
+    """The port's probe on CPU tensors of its own data, and its output."""
+    mod, make = {"probe": (gather_probe, data.probe_arrays),
+                 "probe2": (gather_probe2, data.probe2_arrays)}[script]
+    p = mod.probes(data.to_device(make(), "cpu"))[index]
+    before = p.op.launches
+    out = p.op(*p.args)
+    assert p.op.launches == before          # CPU tensors: the plain twin
+    np.testing.assert_array_equal(out.numpy(), p.plain(*p.args).numpy())
+    return p, out.numpy()
+
+
+def _assert_close(p, got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    if p.op is gather_ops.matmul_f32:
+        np.testing.assert_allclose(
+            got, want, rtol=0, atol=REL_TOL * max(1.0, np.abs(want).max()))
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("key", list(BODIES), ids=PROBE_IDS)
+def test_probe_plain_matches_jnp(scripts, key):
+    _, expr, names = BODIES[key]
+    p, got = _port(*key)
+    _assert_close(p, got, np.asarray(expr(*_jax_args(scripts, key[0], names))))
+
+
+@pytest.mark.parametrize("key", list(BODIES), ids=PROBE_IDS)
+def test_probe_plain_matches_pallas_interpret(scripts, key):
+    body, _, names = BODIES[key]
+    p, got = _port(*key)
+    args = _jax_args(scripts, key[0], names)
+    f = pl.pallas_call(
+        body, out_shape=jax.ShapeDtypeStruct(got.shape, got.dtype),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * len(args),
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)
+    _assert_close(p, got, np.asarray(f(*args)))
+
+
+# --- duplicate indices: the last occurrence wins, in both packages --------
+
+def test_last_occurrence():
+    x = torch.tensor([[1, 1, 2, 2, 1, 0, 0, 3], [5, 5, 5, 5, 4, 4, 4, 4]])
+    want = [[0, 0, 0, 1, 1, 0, 1, 1], [0, 0, 0, 1, 0, 0, 0, 1]]
+    assert gather_ops.last_occurrence(x).tolist() == np.array(want, bool).tolist()
+
+
+def test_duplicates_scatter():
+    idx = np.zeros((8, 4), np.int32)
+    idx[:, 0] = [1, 1, 2, 2, 1, 0, 0, 3]
+    val = np.tile(np.arange(8, dtype=np.float32)[:, None], (1, 4))
+    got = gather_ops.column_scatter(torch.from_numpy(val),
+                                    torch.from_numpy(idx), 4).numpy()
+    want = np.zeros((4, 4), np.float32)
+    want[:, 0] = [6, 4, 3, 7]
+    np.testing.assert_array_equal(got, want)
+    interp = pl.pallas_call(
+        k_scat, out_shape=jax.ShapeDtypeStruct((4, 4), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)
+    np.testing.assert_array_equal(np.asarray(interp(val, idx)), want)
+
+
+def test_duplicates_sweeps():
+    """A small X1 case whose block steps repeat most sites, against the
+    script's xla_sweeps loop restated over explicit arrays."""
+    rng = np.random.default_rng(3)
+    n, NB, B, W, S = 40, 3, 16, 16, 2
+    w0 = rng.normal(size=n).astype(np.float32)
+    sites = rng.integers(0, 6, size=(NB, B)).astype(np.int32)
+    nbrs = rng.integers(0, n, size=(NB, B, W)).astype(np.int32)
+    q = (0.1 * rng.normal(size=(NB, B, W))).astype(np.float32)
+    P = rng.uniform(1.0, 2.0, size=(NB, B)).astype(np.float32)
+    noise = rng.normal(size=(S, NB, B)).astype(np.float32)
+    j_sites, j_nbrs, j_q, j_P = map(jnp.asarray, (sites, nbrs, q, P))
+
+    @jax.jit
+    def xla_sweeps(w, noise):
+        def one_sweep(s, w):
+            def block(b, w):
+                g = w[j_nbrs[b]]
+                mean = jnp.sum(j_q[b] * g, axis=1) / j_P[b]
+                return w.at[j_sites[b]].set(mean + noise[s, b] * lax.rsqrt(j_P[b]))
+            return lax.fori_loop(0, NB, block, w)
+        return lax.fori_loop(0, S, one_sweep, w)
+
+    want = np.asarray(xla_sweeps(jnp.asarray(w0), jnp.asarray(noise)))
+    t = {k: torch.from_numpy(v) for k, v in
+         dict(sites=sites, nbrs=nbrs, q=q, P=P, noise=noise).items()}
+    got = gather_ops.gather_sweeps(
+        torch.from_numpy(w0.copy()), t["sites"], t["nbrs"], t["q"], t["P"],
+        t["noise"], gather_ops.last_occurrence(t["sites"])).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=REL_TOL * max(1.0, np.abs(want).max()))
+    # the first occurrence winning would give another field
+    first = gather_ops.last_occurrence(t["sites"].flip(-1)).flip(-1)
+    other = gather_ops.gather_sweeps(
+        torch.from_numpy(w0.copy()), t["sites"], t["nbrs"], t["q"], t["P"],
+        t["noise"], first).numpy()
+    assert np.abs(other - want).max() > 1e-3
+
+
+# --- dispatch, validation and entry points --------------------------------
+
+WRAPPERS = {
+    "gather_sweeps": (gather_ops._sweep_library, 7),
+    "staged_gather": (gather_ops._probe_library, 2),
+    "column_scatter": (gather_ops._probe_library, 3),
+    "matmul_f32": (gather_ops._probe_library, 2),
+}
+
+
+@pytest.mark.parametrize("name", sorted(WRAPPERS))
+def test_cuda_branch_raises_without_kernel(monkeypatch, name):
+    """A CUDA tensor goes to the kernel or raises: with no nvcc the wrapper
+    fails loudly and never runs its plain twin."""
+    library, n_args = WRAPPERS[name]
+    monkeypatch.setattr(_build, "nvcc_path", lambda: None)
+    _build.cuda_library.cache_clear()
+    library.cache_clear()
+    calls = []
+    monkeypatch.setattr(gather_ops, f"{name}_reference",
+                        lambda *a: calls.append(a))
+    op = getattr(gather_ops, name)
+    fake = types.SimpleNamespace(device=torch.device("cuda"))
+    before = op.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        op(fake, *([None] * (n_args - 1)))
+    assert not calls and op.launches == before
+    library.cache_clear()
+
+
+@pytest.mark.parametrize("stages", [
+    [("rows", torch.zeros(4, 3, dtype=torch.int32))],
+    [("cols", torch.zeros(5, 2, dtype=torch.int32))],
+    [("spin", 1)],
+    [("roll", 1)] * 5,
+], ids=["rows-width", "cols-height", "unknown", "too-many"])
+def test_staged_gather_rejects_malformed_chain(stages):
+    with pytest.raises(ValueError):
+        gather_ops.staged_gather(torch.zeros(4, 2), stages)
+
+
+@pytest.mark.parametrize("entry", [gather_bench, gather_probe, gather_probe2],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_entry_point_needs_a_card(monkeypatch, entry):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA card"):
+        entry.main()
