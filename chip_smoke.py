@@ -23,8 +23,11 @@ with a nonzero exit and no "ok" line:
                   shapes, each against its plain PyTorch twin: the DSMEM
                   sweep within 1e-5 * max(1, |w|_inf) at every cluster
                   size, gathers/roll/transpose/scatter exactly, the matmul
-                  within 1e-5 * max(1, |C|_inf); then the three entry
-                  points, with each kernel's launch count from that run
+                  within 1e-5 * max(1, |C|_inf) at the probe's shape and at
+                  shapes that cross every tile edge, its repeat calls bit
+                  for bit; the matmul and cuBLAS FP32 timed at 2048 x 512 x
+                  2048; then the three entry points, with each kernel's
+                  launch count from that run
   7. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
                   estimate, with the kernel's launch count from that run
                   only; then 25 more iterations to time a warm cycle
@@ -46,6 +49,9 @@ PARITY_TOL = 1e-3   # card against CPU after 3 iterations, same scaling
 # ~6e14, so the error is held relative to |w|_inf
 X1_TOL_REL = 1e-5
 MM_TOL_REL = 1e-5   # matmul against plain: 1e-5 * max(1, |C|_inf)
+# (M, K, N) across every edge of the matmul's 64 x 128 x 32 tiles
+MM_RAGGED = ((1, 4, 4), (65, 1028, 132), (512, 1024, 128), (130, 36, 260),
+             (2048, 512, 2048))
 
 
 def phase(name, msg, t0):
@@ -152,6 +158,43 @@ def kernel_vs_plain(mc):
     return out
 
 
+def matmul_checks(dev):
+    """The matmul at MM_RAGGED against its twin, repeat calls bit for bit,
+    and both timed at 2048 x 512 x 2048 (one line each)."""
+    import numpy as np
+    import torch
+
+    from nngp_tpu_torch.experiments import gather_ops, timing
+
+    rng = np.random.default_rng(0)
+    report, ops = [], {}
+    for M, K, N in MM_RAGGED:
+        a = torch.from_numpy(rng.normal(size=(M, K)).astype(np.float32)).to(dev)
+        b = torch.from_numpy(rng.normal(size=(K, N)).astype(np.float32)).to(dev)
+        got = gather_ops.matmul_f32(a, b)
+        again = gather_ops.matmul_f32(a, b)
+        want = gather_ops.matmul_f32_reference(a, b)
+        diff = (got - want).abs().max().item()
+        tol = MM_TOL_REL * max(1.0, want.abs().max().item())
+        report.append(f"{M}x{K}x{N} {diff:.2e}/{tol:.2e}")
+        if got.shape != want.shape or not bool(torch.isfinite(got).all()) \
+                or diff > tol:
+            raise RuntimeError(f"matmul_f32 at {M}x{K}x{N}: max abs diff "
+                               f"{diff:.3e} > tol {tol:.3e}")
+        if not torch.equal(got, again):
+            raise RuntimeError(f"matmul_f32 at {M}x{K}x{N}: repeat calls "
+                               "differ")
+        ops[(M, K, N)] = (a, b)
+    print("  matmul ragged shapes, max abs diff/tol: " + ", ".join(report)
+          + "; repeat calls bit-identical -> ok", flush=True)
+    a, b = ops[(2048, 512, 2048)]
+    ms, _ = timing.per_call_ms(lambda: gather_ops.matmul_f32(a, b))
+    plain_ms, _ = timing.per_call_ms(
+        lambda: gather_ops.matmul_f32_reference(a, b))
+    print(f"  matmul 2048x512x2048: kernel {ms * 1e3:.2f} us, cuBLAS FP32 "
+          f"{plain_ms * 1e3:.2f} us per call", flush=True)
+
+
 def gather_probes(dev):
     """The four gather-probe kernels against their plain twins at the
     scripts' shapes, then the three entry points with counted launches."""
@@ -195,6 +238,7 @@ def gather_probes(dev):
             err[name] = max(err.get(name, 0.0),
                             held(f"{mod.__name__.rsplit('.', 1)[1]}: "
                                  f"{p.name}", p.op(*p.args), want, tol))
+    matmul_checks(dev)
     torch.cuda.synchronize()
 
     ops = (gather_ops.gather_sweeps, gather_ops.staged_gather,

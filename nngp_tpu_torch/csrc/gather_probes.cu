@@ -28,29 +28,45 @@
 //   of the atomics), then writes its rows.  Bound: every block reads the
 //   index column (4 KB at the probe's size); output writes are coalesced.
 //
-// matmul_f32_kernel (k_mm, gather_probe.py:93): C = A B in float32 with
-//   FP32 FMAs (no TF32).  A cluster of KS blocks computes a BM x 128 tile
-//   of C, block r over the r-th slice of the depth: tiles of 32 of depth
-//   are staged through shared memory (A transposed), the next one loaded
-//   into registers while the current one is multiplied, each thread an
-//   8 x 4 register tile (two broadcast and one 16-byte shared load per 32
-//   FMAs).  The partial tiles stay in the blocks' shared memory; then each
-//   block adds, in rank order, the BM / KS rows it owns over the whole
-//   cluster through distributed shared memory and writes them, so the sum
-//   is deterministic.  Bound: at 512 x 1024 x 1024 x 128 (67 M FMAs, 2 us
-//   at the card's FP32 rate) latency, not FMAs: on an H100 at 700 W a
-//   launch takes 1.2 us, staging the tiles 4.7 us (10 MB from L2, B read
-//   once per row tile), the products 3.9 us (about half the FMA issue
-//   rate) and the cluster sum 0.9 us.  There are 16 row tiles of 32, so
-//   the depth is split 16 ways (a non-portable cluster size, set
-//   explicitly) for 256 blocks of 128 threads; 64-row tiles, an 8-way
-//   split and 16- or 64-deep tiles were slower.
+// matmul_f32_kernel<KS> (k_mm, gather_probe.py:93, through try_kernel
+//   :27,42): C = A B to float32 accuracy on the tensor cores, as 3xTF32.
+//   Each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
+//   (cvt.rna; x - hi is exact in float32), and C = A_lo B_hi + A_hi B_lo +
+//   A_hi B_hi.  The tensor cores' f32 accumulation truncates, so each
+//   32-deep tile's twelve products go to fresh accumulators that are added
+//   to the block's sums, rounded to nearest.
+//   Design: a block of two warpgroups owns a 64 x 128 tile of C, 64
+//   columns per warpgroup (wgmma.m64n64k8.tf32).  Thread 0 streams A's and
+//   B's 32-deep tiles in by TMA (zero fill past the ragged edges) into two
+//   stages behind mbarriers.  All 256 threads split each arrived stage into
+//   hi/lo tiles in the 128-byte-swizzled K-major layout that the wgmma
+//   descriptors name (tf32 wgmma takes K-major operands only, so B's tile
+//   is transposed there), into one of two buffers, so that one tile's
+//   products run while the next tile is split.  The depth is split KS ways
+//   (a power of two up to 8, so that tiles x KS fill the 132 SMs) across
+//   the blocks of one cluster; each block then adds, in rank order, the
+//   rows it owns over the cluster through distributed shared memory, so
+//   two calls give bit-identical C.  A cluster of 16 would need two blocks
+//   on an SM to be resident at once, which these blocks' registers and
+//   shared memory do not allow.
+//   What bounds it (NVIDIA H100 80GB HBM3, 700 W): at the probe's
+//   512 x 1024 x 128 (KS = 8, 64 blocks of 4 tiles) latency: the launch
+//   (1.7 us), the split (~0.7 us a tile: a compare/select per cvt and 18 KB
+//   of shared-memory traffic), the DSMEM sum (~1.1 us: each block reads a
+//   whole 32 KB tile over the cluster network) and two cluster barriers.
+//   At 2048 x 2048 x 512 (KS = 1) the split and the L2 traffic of 64 x 128
+//   tiles.  The SIMT FP32 design this replaces spent 4.7 us staging
+//   operands through registers and 3.9 us on FFMAs at the probe's shape.
 
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC (nngp_tpu_torch/ops/_build.py); no fast-math.
 
 #include <cooperative_groups.h>
+#include <cuda.h>           // CUtensorMap and its enums (types only)
+#include <cudaTypedefs.h>   // PFN_cuTensorMapEncodeTiled
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace cg = cooperative_groups;
 
@@ -137,126 +153,324 @@ column_scatter_kernel(const float* __restrict__ val,  // [n_in, cols]
 
 // ----------------------------------------------------------------- matmul
 
-constexpr int kDepth = 32;       // depth of a tile staged in shared memory
-constexpr int kTileCols = 128;   // output columns per block
+constexpr int kMmRows = 64;       // rows of C per block: wgmma m64
+constexpr int kMmCols = 128;      // columns of C per block: wgmma n128
+constexpr int kMmDepth = 32;      // depth of a stage: one 128-byte row of f32
+constexpr int kMmStages = 2;      // TMA stages in flight
+constexpr int kMmThreads = 256;   // two warpgroups, one per 64 columns
+constexpr int kMmHalf = kMmCols / 2;   // columns of C per warpgroup: wgmma n64
+constexpr int kMmAcc = kMmHalf / 2;    // f32 accumulators per thread
+constexpr int kMmMaxSplit = 8;    // blocks of a cluster, all resident at once
+constexpr int kMmSms = 132;       // SMs of an H100 SXM
+constexpr int kMmPartStride = kMmCols + 8;   // floats per row of a partial
+constexpr int kMmSpinLimit = 1 << 26;        // tries before a lost TMA traps
 
-// Shared memory of one block: A tile transposed [kDepth][BM + 4] (rows
-// padded, still 16-byte aligned), B tile [kDepth][kTileCols], and the
-// block's partial product [BM][kTileCols].
-template <int BM>
-constexpr int mm_smem_floats() {
-  return kDepth * (BM + 4) + kDepth * kTileCols + BM * kTileCols;
+// A stage as TMA writes it: A's tile K-major with the 128-byte swizzle
+// (row r, depth k at r * 32 + 4 * ((k / 4) ^ (r % 8)) + k % 4), B's tile
+// as stored, [depth][cols].  Every tile starts on 1024 bytes, where the
+// swizzle pattern repeats.
+struct __align__(1024) MmStage {
+  float a[kMmRows * kMmDepth];
+  float b[kMmDepth * kMmCols];
+};
+// The wgmma operands: hi and lo of A in A's layout, of B transposed to
+// K-major with the same swizzle (column n, depth k at
+// n * 32 + 4 * ((k / 4) ^ (n % 8)) + k % 4).
+struct __align__(1024) MmSplit {
+  float a_hi[kMmRows * kMmDepth], a_lo[kMmRows * kMmDepth];
+  float b_hi[kMmCols * kMmDepth], b_lo[kMmCols * kMmDepth];
+};
+struct MmShared {
+  MmStage stage[kMmStages];   // after the main loop: the block's partial tile
+  MmSplit split[2];           // tile t's products run while t + 1 is split
+  unsigned long long full[kMmStages];   // mbarrier: the stage has arrived
+};
+static_assert(kMmRows * kMmPartStride * sizeof(float) <= sizeof(MmStage) * kMmStages,
+              "the partial tile fits in the idle stages");
+static_assert(kMmThreads % kMmCols == 0 && kMmThreads / kMmCols <= kMmDepth / 4,
+              "whole columns of B per thread in the split");
+constexpr int kMmSmem = sizeof(MmShared) + 1024;   // + slack to align the base
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <int BM, int KS>
-__global__ void __launch_bounds__(BM / 8 * 32)
-matmul_f32_kernel(const float* __restrict__ A,  // [M, K]
-                  const float* __restrict__ Bm, // [K, N]
-                  float* __restrict__ Cm,       // [M, N]
-                  int M, int N, int K) {
-  constexpr int T = BM / 8 * 32;      // threads: 8 rows x 4 columns each
-  constexpr int kARows = BM + 4;
-  extern __shared__ float4 smem4[];
-  float* As = reinterpret_cast<float*>(smem4);
-  float* Bs = As + kDepth * kARows;
-  float* Ps = Bs + kDepth * kTileCols;
-  cg::cluster_group cluster = cg::this_cluster();
-  const int rank = static_cast<int>(cluster.block_rank());  // depth slice
-  const int tx = threadIdx.x % 32, ty = threadIdx.x / 32;
-  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * kTileCols;
-  // this block's depth slice, whole tiles
-  const int slice = (K + KS * kDepth - 1) / (KS * kDepth) * kDepth;
-  const int k_lo = rank * slice, k_hi = min(K, k_lo + slice);
-  const int n_tiles = k_hi > k_lo ? (k_hi - k_lo + kDepth - 1) / kDepth : 0;
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  constexpr int kA4 = BM * kDepth / 4 / T;      // float4 of A per thread
-  constexpr int kB4 = kDepth * kTileCols / 4 / T;   // float4 of B per thread
-  float4 ra[kA4], rb[kB4];
-  auto load = [&](int t) {
-    const int k0 = k_lo + t * kDepth;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// Waits for the phase after `parity`; traps rather than hang the card if
+// the bytes never arrive.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (int spin = 0;; ++spin) {
+    uint32_t done;
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (spin == kMmSpinLimit) __trap();
+  }
+}
+
+// TMA: the box at (c0, c1) of `map` (innermost coordinate first) into
+// shared memory at `dst`, its bytes counted on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// x = hi + lo + (x - hi - lo): hi and lo are TF32 (low 13 bits zero),
+// rounded to nearest with ties away from zero; x - hi is exact.
+__device__ __forceinline__ float tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return __uint_as_float(r);
+}
+
+__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
+  hi = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+  lo = make_float4(tf32_rna(x.x - hi.x), tf32_rna(x.y - hi.y),
+                   tf32_rna(x.z - hi.z), tf32_rna(x.w - hi.w));
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte
+// swizzle: rows of 128 bytes, groups of 8 rows 1024 bytes apart (the
+// stride offset); the leading offset is unused by this layout.  Adding
+// 2 to it steps 8 of depth (32 bytes) along the rows.
+__device__ __forceinline__ uint64_t sw128_desc(const float* tile) {
+  return static_cast<uint64_t>((smem_u32(tile) & 0x3FFFF) >> 4) |
+         (1ull << 16) | (static_cast<uint64_t>(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// d = A B + (accumulate ? d : 0) for a 64 x 8 A and an 8 x 64 B in TF32,
+// f32 accumulators in the wgmma layout: d[i] is row 16 * (warp % 4) +
+// lane / 4 + 8 * (i / 2 % 2), column 8 * (i / 4) + 2 * (lane % 4) + i % 2.
+__device__ __forceinline__ void wgmma_tf32(float (&d)[kMmAcc], uint64_t da,
+                                           uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n\t.reg .pred p;\n\tsetp.ne.b32 p, %34, 0;\n\t"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1;\n\t}"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// Keeps the compiler from moving accumulator accesses across a wgmma.
+__device__ __forceinline__ void fence_acc(float (&d)[kMmAcc]) {
 #pragma unroll
-    for (int r = 0; r < kA4; ++r) {
-      const int f = threadIdx.x + T * r;
-      const int m = row0 + f / (kDepth / 4), k = k0 + 4 * (f % (kDepth / 4));
-      ra[r] = (t < n_tiles && m < M && k < k_hi)
-                  ? __ldg(reinterpret_cast<const float4*>(A + (long long)m * K + k))
-                  : zero;
-    }
-#pragma unroll
-    for (int r = 0; r < kB4; ++r) {
-      const int f = threadIdx.x + T * r;
-      const int k = k0 + f / (kTileCols / 4), n = col0 + 4 * (f % (kTileCols / 4));
-      rb[r] = (t < n_tiles && k < k_hi && n < N)
-                  ? __ldg(reinterpret_cast<const float4*>(Bm + (long long)k * N + n))
-                  : zero;
-    }
+  for (int i = 0; i < kMmAcc; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// KS: the depth split, the blocks of one cluster (1: no cluster).
+template <int KS>
+__global__ void __launch_bounds__(kMmThreads)
+matmul_f32_kernel(const __grid_constant__ CUtensorMap tm_a,  // A [M, K]
+                  const __grid_constant__ CUtensorMap tm_b,  // B [K, N]
+                  float* __restrict__ Cm,                    // C [M, N]
+                  int M, int N, int K, int tiles_per_rank) {
+  // The dynamic window need not start on 1024 bytes: step to the next
+  // multiple by indexing (the compiler keeps the shared address space).
+  extern __shared__ __align__(1024) unsigned char mm_smem[];
+  MmShared& sh = *reinterpret_cast<MmShared*>(
+      mm_smem + ((1024 - (smem_u32(mm_smem) & 1023)) & 1023));
+  const int rank = KS > 1 ? static_cast<int>(cg::this_cluster().block_rank()) : 0;
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * kMmRows, col0 = blockIdx.x * kMmCols;
+  const int t0 = rank * tiles_per_rank;   // this block's first depth tile
+  const int n_k = max(0, min(tiles_per_rank, (K + kMmDepth - 1) / kMmDepth - t0));
+
+  auto fetch = [&](int t) {   // thread 0: depth tile t into its stage
+    MmStage& st = sh.stage[t % kMmStages];
+    const uint32_t bar = smem_u32(&sh.full[t % kMmStages]);
+    const int k0 = (t0 + t) * kMmDepth;
+    mbar_expect_tx(bar, sizeof(MmStage));
+    tma_load_2d(smem_u32(st.a), &tm_a, bar, k0, row0);
+    tma_load_2d(smem_u32(st.b), &tm_b, bar, col0, k0);
   };
-  float acc[8][4] = {};
-  load(0);
-  for (int t = 0; t < n_tiles; ++t) {
+  if (tid == 0) {
+    for (int s = 0; s < kMmStages; ++s) mbar_init(smem_u32(&sh.full[s]), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    for (int t = 0; t < min(kMmStages, n_k); ++t) fetch(t);
+  }
+  __syncthreads();   // the barriers are initialised
+
+  // The tensor cores' f32 accumulation truncates, so each depth tile's
+  // twelve products go to fresh registers (tile0 for even tiles, tile1
+  // for odd) that are then added, rounded to nearest, into `acc`.
+  float acc[kMmAcc], tile0[kMmAcc], tile1[kMmAcc];
 #pragma unroll
-    for (int r = 0; r < kA4; ++r) {
-      const int f = threadIdx.x + T * r;
-      const int m = f / (kDepth / 4), k = 4 * (f % (kDepth / 4));
-      As[(k + 0) * kARows + m] = ra[r].x;
-      As[(k + 1) * kARows + m] = ra[r].y;
-      As[(k + 2) * kARows + m] = ra[r].z;
-      As[(k + 3) * kARows + m] = ra[r].w;
+  for (int i = 0; i < kMmAcc; ++i) acc[i] = tile0[i] = tile1[i] = 0.f;
+  const int wg = tid / 128;   // this warpgroup's columns: wg * 64 on
+  // Depth tile t: split its stage into split[t % 2], start its products
+  // into `cur` and, once tile t - 1's products are done, add `prev`.
+  auto step = [&](int t, float (&cur)[kMmAcc], float (&prev)[kMmAcc]) {
+    const MmStage& st = sh.stage[t % kMmStages];
+    MmSplit& hl = sh.split[t % 2];
+    mbar_wait(smem_u32(&sh.full[t % kMmStages]), (t / kMmStages) & 1);
+    // A: same layout in and out, float4 by float4
+#pragma unroll
+    for (int j = 0; j < kMmRows * kMmDepth / 4 / kMmThreads; ++j) {
+      const int c = tid + kMmThreads * j;
+      float4 hi, lo;
+      split4(reinterpret_cast<const float4*>(st.a)[c], hi, lo);
+      reinterpret_cast<float4*>(hl.a_hi)[c] = hi;
+      reinterpret_cast<float4*>(hl.a_lo)[c] = lo;
     }
+    // B: column n, four of depth per 16-byte store
+    constexpr int kGroups = kMmThreads / kMmCols, kChunks = kMmDepth / 4 / kGroups;
+    const int n = tid % kMmCols;
 #pragma unroll
-    for (int r = 0; r < kB4; ++r) {
-      const int f = threadIdx.x + T * r;
-      reinterpret_cast<float4*>(Bs)[f] = rb[r];
+    for (int j = 0; j < kChunks; ++j) {
+      const int kc = tid / kMmCols * kChunks + j;
+      const float* col = st.b + 4 * kc * kMmCols + n;
+      float4 hi, lo;
+      split4(make_float4(col[0], col[kMmCols], col[2 * kMmCols], col[3 * kMmCols]),
+             hi, lo);
+      const int c = n * (kMmDepth / 4) + (kc ^ (n & 7));
+      reinterpret_cast<float4*>(hl.b_hi)[c] = hi;
+      reinterpret_cast<float4*>(hl.b_lo)[c] = lo;
     }
-    __syncthreads();
-    load(t + 1);  // in flight during the products below
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");   // for wgmma
+    __syncthreads();   // the split is whole; the stage is read
+    if (tid == 0 && t + kMmStages < n_k) fetch(t + kMmStages);
+    const uint64_t a_hi = sw128_desc(hl.a_hi), a_lo = sw128_desc(hl.a_lo);
+    const uint64_t b_hi = sw128_desc(hl.b_hi + wg * kMmHalf * kMmDepth);
+    const uint64_t b_lo = sw128_desc(hl.b_lo + wg * kMmHalf * kMmDepth);
+    fence_acc(cur);
+    asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 #pragma unroll
-    for (int k = 0; k < kDepth; ++k) {
-      const float4 a0 = reinterpret_cast<const float4*>(As + k * kARows + 8 * ty)[0];
-      const float4 a1 = reinterpret_cast<const float4*>(As + k * kARows + 8 * ty)[1];
-      const float4 b = reinterpret_cast<const float4*>(Bs + k * kTileCols)[tx];
-      const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    for (int kk = 0; kk < kMmDepth / 8; ++kk) {
+      wgmma_tf32(cur, a_lo + 2 * kk, b_hi + 2 * kk, kk > 0);
+      wgmma_tf32(cur, a_hi + 2 * kk, b_lo + 2 * kk, 1);
+      wgmma_tf32(cur, a_hi + 2 * kk, b_hi + 2 * kk, 1);
+    }
+    asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+    asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
+    fence_acc(prev);
 #pragma unroll
-      for (int u = 0; u < 8; ++u) {
-        acc[u][0] = fmaf(a[u], b.x, acc[u][0]);
-        acc[u][1] = fmaf(a[u], b.y, acc[u][1]);
-        acc[u][2] = fmaf(a[u], b.z, acc[u][2]);
-        acc[u][3] = fmaf(a[u], b.w, acc[u][3]);
+    for (int i = 0; i < kMmAcc; ++i) acc[i] += prev[i];   // 0 before tile 1
+    __syncthreads();   // tile t - 1's products are done with its split
+  };
+  for (int t = 0; t < n_k; t += 2) {
+    step(t, tile0, tile1);
+    if (t + 1 < n_k) step(t + 1, tile1, tile0);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+  fence_acc(tile0);
+  fence_acc(tile1);
+  if (n_k > 0) {
+    if (n_k % 2) {
+#pragma unroll
+      for (int i = 0; i < kMmAcc; ++i) acc[i] += tile0[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kMmAcc; ++i) acc[i] += tile1[i];
+    }
+  }
+
+  const int warp = tid / 32 % 4, lane = tid % 32;
+  const int r_acc = 16 * warp + lane / 4, c_acc = wg * kMmHalf + 2 * (lane % 4);
+  if constexpr (KS == 1) {
+#pragma unroll
+    for (int i = 0; i < kMmAcc; i += 2) {
+      const int m = row0 + r_acc + 8 * (i / 2 % 2), n = col0 + 8 * (i / 4) + c_acc;
+      if (m < M && n < N)   // N is even, so n + 1 < N too
+        *reinterpret_cast<float2*>(Cm + (long long)m * N + n) =
+            make_float2(acc[i], acc[i + 1]);
+    }
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    float* part = reinterpret_cast<float*>(sh.stage);   // every load was consumed
+#pragma unroll
+    for (int i = 0; i < kMmAcc; i += 2)
+      *reinterpret_cast<float2*>(part + (r_acc + 8 * (i / 2 % 2)) * kMmPartStride +
+                                 8 * (i / 4) + c_acc) = make_float2(acc[i], acc[i + 1]);
+    cluster.sync();   // every block's partial tile is in its shared memory
+    // block `rank` adds the rows it owns over the cluster, in rank order;
+    // all KS loads of a thread are in flight at once
+    constexpr int kOwn = kMmRows / KS;
+    for (int e = tid; e < kOwn * (kMmCols / 4); e += kMmThreads) {
+      const int off = (rank * kOwn + e / (kMmCols / 4)) * kMmPartStride + 4 * (e % (kMmCols / 4));
+      float4 p[KS];
+#pragma unroll
+      for (int h = 0; h < KS; ++h)
+        p[h] = *reinterpret_cast<const float4*>(cluster.map_shared_rank(part, h) + off);
+      float4 s = p[0];
+#pragma unroll
+      for (int h = 1; h < KS; ++h) {
+        s.x += p[h].x;
+        s.y += p[h].y;
+        s.z += p[h].z;
+        s.w += p[h].w;
       }
+      const int m = row0 + rank * kOwn + e / (kMmCols / 4), n = col0 + 4 * (e % (kMmCols / 4));
+      if (m < M && n < N)
+        *reinterpret_cast<float4*>(Cm + (long long)m * N + n) = s;
     }
-    __syncthreads();
+    cluster.sync();   // no block leaves while another reads its partial
   }
-#pragma unroll
-  for (int u = 0; u < 8; ++u)
-    reinterpret_cast<float4*>(Ps + (8 * ty + u) * kTileCols)[tx] =
-        make_float4(acc[u][0], acc[u][1], acc[u][2], acc[u][3]);
-  cluster.sync();  // every block's partial product is in its shared memory
-  // block `rank` adds the rows it owns over the cluster, in rank order
-  constexpr int kOwn = BM / KS;
-  static_assert(BM % KS == 0, "every block owns whole rows of the tile");
-  static_assert(kOwn * kTileCols / 4 <= T, "one float4 of the sum per thread");
-  if (threadIdx.x < kOwn * kTileCols / 4) {
-    const int r = rank * kOwn + threadIdx.x / (kTileCols / 4);
-    const int c4 = threadIdx.x % (kTileCols / 4);
-    float4 s = zero;
-    for (int h = 0; h < KS; ++h) {
-      const float4 p = reinterpret_cast<const float4*>(
-          cluster.map_shared_rank(Ps, h) + r * kTileCols)[c4];
-      s.x += p.x;
-      s.y += p.y;
-      s.z += p.z;
-      s.w += p.w;
-    }
-    const int m = row0 + r, n = col0 + 4 * c4;
-    if (m < M && n < N)
-      *reinterpret_cast<float4*>(Cm + (long long)m * N + n) = s;
-  }
-  cluster.sync();  // no block leaves while another reads its partial
 }
 
-// The cluster's shape: BM output rows per block, the depth split KS ways.
-constexpr int kMmRows = 32;
-constexpr int kMmSplit = 16;
+// cuTensorMapEncodeTiled from libcuda, reached through the runtime's
+// entry-point query so that the library needs no -lcuda; null if absent.
+PFN_cuTensorMapEncodeTiled tensor_map_encoder() {
+  void* fn = nullptr;
+  cudaDriverEntryPointQueryResult found;
+  if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault,
+                              &found) != cudaSuccess ||
+      found != cudaDriverEntryPointSuccess)
+    return nullptr;
+  return reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
+}
+
+// A row-major float32 [outer, inner] matrix in boxes of box_outer x
+// box_inner; TMA fills the part of a box past the edge with zeros.
+CUresult encode_2d(PFN_cuTensorMapEncodeTiled encode, CUtensorMap* map,
+                   const float* base, int inner, int outer, int box_inner,
+                   int box_outer, CUtensorMapSwizzle swizzle) {
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)inner * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)box_inner, (cuuint32_t)box_outer};
+  const cuuint32_t step[2] = {1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
+                dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+using MmKernel = void (*)(CUtensorMap, CUtensorMap, float*, int, int, int, int);
+
+MmKernel matmul_kernel_for(int ks) {
+  switch (ks) {
+    case 1: return matmul_f32_kernel<1>;
+    case 2: return matmul_f32_kernel<2>;
+    case 4: return matmul_f32_kernel<4>;
+    case 8: return matmul_f32_kernel<8>;
+    default: return nullptr;
+  }
+}
 
 }  // namespace
 
@@ -309,32 +523,64 @@ extern "C" int column_scatter_launch(const float* val, const int* idx, int n_in,
   return (int)cudaGetLastError();
 }
 
-// A, B, C row-major and 16-byte aligned; K and N multiples of 4.
+// The depth split of a C of M x N with depth K: the largest power of two
+// up to 8, and up to the number of 32-deep tiles, for which the blocks
+// (64 x 128 tiles of C times the split) fit on the 132 SMs at once.
+extern "C" int matmul_f32_split(int M, int N, int K) {
+  const long long tiles = (long long)((M + kMmRows - 1) / kMmRows) *
+                          ((N + kMmCols - 1) / kMmCols);
+  const int depth_tiles = (K + kMmDepth - 1) / kMmDepth;
+  int ks = 1;
+  while (2 * ks <= kMmMaxSplit && 2 * ks <= depth_tiles && tiles * 2 * ks <= kMmSms)
+    ks *= 2;
+  return ks;
+}
+
+// A, B, C row-major and 16-byte aligned; K and N multiples of 4 (TMA's
+// address and stride rules).  Returns 0 when launched, a cudaError_t, or
+// minus the CUresult of a tensor map that failed to encode.
 extern "C" int matmul_f32_launch(const float* A, const float* B, float* C,
                                  int M, int N, int K, void* stream) {
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  auto kernel = matmul_f32_kernel<kMmRows, kMmSplit>;
-  const int smem = mm_smem_floats<kMmRows>() * (int)sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess && kMmSplit > 8)
-    e = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-  if (e != cudaSuccess) return (int)e;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 1;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = kMmSplit;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (K == 0) {   // an empty sum: no tensor map has a zero extent
+    cudaError_t e = cudaMemsetAsync(C, 0, (size_t)M * N * sizeof(float), s);
+    return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+  }
+  static const PFN_cuTensorMapEncodeTiled encode = tensor_map_encoder();
+  if (encode == nullptr) return (int)cudaErrorSymbolNotFound;
+  static const cudaError_t attr = [] {   // once per process
+    cudaError_t e = cudaSuccess;
+    for (int ks = 1; ks <= kMmMaxSplit && e == cudaSuccess; ks *= 2) {
+      e = cudaFuncSetAttribute(matmul_kernel_for(ks),
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMmSmem);
+    }
+    return e;
+  }();
+  if (attr != cudaSuccess) return (int)attr;
+  CUtensorMap tm_a, tm_b;
+  CUresult r = encode_2d(encode, &tm_a, A, K, M, kMmDepth, kMmRows,
+                         CU_TENSOR_MAP_SWIZZLE_128B);
+  if (r == CUDA_SUCCESS)
+    r = encode_2d(encode, &tm_b, B, N, K, kMmCols, kMmDepth,
+                  CU_TENSOR_MAP_SWIZZLE_NONE);
+  if (r != CUDA_SUCCESS) return -(int)r;
+  const int ks = matmul_f32_split(M, N, K);
+  int tiles_per_rank = ((K + kMmDepth - 1) / kMmDepth + ks - 1) / ks;
+  cudaLaunchAttribute attrs[1];
+  attrs[0].id = cudaLaunchAttributeClusterDimension;
+  attrs[0].val.clusterDim.x = 1;
+  attrs[0].val.clusterDim.y = 1;
+  attrs[0].val.clusterDim.z = ks;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((N + kTileCols - 1) / kTileCols, (M + kMmRows - 1) / kMmRows,
-                     kMmSplit);
-  cfg.blockDim = dim3(kMmRows / 8 * 32, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = (cudaStream_t)stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, A, B, C, M, N, K);
+  cfg.gridDim = dim3((N + kMmCols - 1) / kMmCols, (M + kMmRows - 1) / kMmRows, ks);
+  cfg.blockDim = dim3(kMmThreads, 1, 1);
+  cfg.dynamicSmemBytes = kMmSmem;
+  cfg.stream = s;
+  cfg.attrs = attrs;
+  cfg.numAttrs = ks > 1 ? 1 : 0;
+  void* args[] = {&tm_a, &tm_b, &C, &M, &N, &K, &tiles_per_rank};
+  cudaError_t e = cudaLaunchKernelExC(&cfg, (const void*)matmul_kernel_for(ks), args);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

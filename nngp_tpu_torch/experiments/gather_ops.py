@@ -7,7 +7,8 @@ Four wrappers, each with a ``.launches`` count of kernel launches:
 ``staged_gather``  take_along_axis chains, roll and transpose of
                    gather_probe.py/gather_probe2.py: ``csrc/gather_probes.cu``
 ``column_scatter`` the scatter ``out[idx[:, 0], 0] = val[:, 0]`` into zeros
-``matmul_f32``     the float32 product of k_mm, FP32 FMAs (no TF32)
+``matmul_f32``     the float32 product of k_mm: 3xTF32 on the tensor cores
+                   (TMA-fed wgmma, deterministic split-K cluster sum)
 
 On a CUDA tensor a wrapper launches its kernel (built with nvcc on first
 use) or raises; on a CPU tensor it runs the plain twin.  Where an index
@@ -177,8 +178,9 @@ def _probe_library():
         p, p, i, i, i, i, i, pi, ctypes.POINTER(ctypes.c_void_p), pi, pi, pi, p]
     lib.column_scatter_launch.argtypes = [p, p, i, i, p, i, p]
     lib.matmul_f32_launch.argtypes = [p, p, p, i, i, i, p]
+    lib.matmul_f32_split.argtypes = [i, i, i]
     for fn in (lib.staged_gather_launch, lib.column_scatter_launch,
-               lib.matmul_f32_launch):
+               lib.matmul_f32_launch, lib.matmul_f32_split):
         fn.restype = ctypes.c_int
     return lib
 
@@ -274,8 +276,47 @@ def matmul_f32_reference(a, b):
     return a @ b
 
 
+# The kernel's tiles of C (rows, columns), its stage depth, its largest
+# depth split (blocks of a cluster) and the SMs it fills (an H100 SXM's).
+MM_TILE = (64, 128)
+MM_DEPTH = 32
+MM_MAX_SPLIT = 8
+MM_SMS = 132
+
+
+def matmul_split_k(M, N, K):
+    """The kernel's depth split for C [M, N] with depth K (the C side's
+    ``matmul_f32_split``): the largest power of two up to MM_MAX_SPLIT, and
+    up to the number of MM_DEPTH-deep tiles, for which the blocks (tiles of
+    C times the split) fit on MM_SMS SMs at once."""
+    tiles = -(-M // MM_TILE[0]) * -(-N // MM_TILE[1])
+    depth_tiles = -(-K // MM_DEPTH)
+    ks = 1
+    while (2 * ks <= MM_MAX_SPLIT and 2 * ks <= depth_tiles
+           and tiles * 2 * ks <= MM_SMS):
+        ks *= 2
+    return ks
+
+
+def tf32_round(x):
+    """float32 ``x`` rounded to TF32 as ``cvt.rna.tf32.f32`` does: to
+    nearest, ties away from zero, low 13 bits zero (a magnitude that rounds
+    past the largest finite float becomes infinite).  For tests."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def matmul_3xtf32_emulated(a, b):
+    """The kernel's numeric scheme in plain float32: hi = tf32(x), lo =
+    tf32(x - hi) for both operands, and C = a_lo b_hi + a_hi b_lo +
+    a_hi b_hi, each product in float32.  For tests."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
 def matmul_f32_cuda(a, b):
-    """Launch the tiled FP32 matmul kernel on the current stream."""
+    """Launch the 3xTF32 wgmma kernel on the current stream."""
     lib = _probe_library()
     dev = a.device
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -291,6 +332,9 @@ def matmul_f32_cuda(a, b):
     err = lib.matmul_f32_launch(a.data_ptr(), b.data_ptr(), out.data_ptr(),
                                 M, N, K,
                                 torch.cuda.current_stream(dev).cuda_stream)
+    if err < 0:
+        raise RuntimeError(f"matmul_f32: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {-err}")
     _raise_on(err, "matmul_f32")
     matmul_f32.launches += 1
     return out

@@ -168,6 +168,63 @@ def test_probe_kernel_matches_plain(monkeypatch, script, index):
         assert torch.equal(got, want)
 
 
+# shapes (M, K, N) that cross every tile edge of the matmul kernel: 64
+# rows, 128 columns, 32 of depth, and the depth split's slices; and an
+# empty depth (C = 0)
+MM_SHAPES = [(1, 4, 4), (65, 1028, 132), (512, 1024, 128), (130, 36, 260),
+             (2048, 512, 2048), (4, 0, 4)]
+MM_IDS = ["x".join(map(str, s)) for s in MM_SHAPES]
+
+
+def _mm_operands(M, K, N, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(M, K)).astype(np.float32)
+    b = rng.normal(size=(K, N)).astype(np.float32)
+    return torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", MM_SHAPES, ids=MM_IDS)
+def test_matmul_matches_plain_at_ragged_shapes(monkeypatch, M, K, N):
+    """The 3xTF32 kernel against ``a @ b`` with TF32 off, within
+    1e-5 * max(1, |C|_inf); one launch per call."""
+    dev = _card()
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    a, b = _mm_operands(M, K, N, dev)
+    before = gather_ops.matmul_f32.launches
+    got = gather_ops.matmul_f32(a, b)
+    want = gather_ops.matmul_f32_reference(a, b)
+    torch.cuda.synchronize()
+    assert gather_ops.matmul_f32.launches == before + 1
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.isfinite(got).all()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(512, 1024, 128), (65, 1028, 132)],
+                         ids=["512x1024x128", "65x1028x132"])
+def test_matmul_repeat_calls_bit_identical(M, K, N):
+    """The depth split's partial tiles are added in rank order, so two
+    calls give the same bits."""
+    dev = _card()
+    a, b = _mm_operands(M, K, N, dev, seed=1)
+    first = gather_ops.matmul_f32(a, b)
+    second = gather_ops.matmul_f32(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_matmul_split_matches_python():
+    """The depth split the kernel takes is the one the CPU tests check."""
+    _card()
+    lib = gather_ops._probe_library()
+    for M, K, N in MM_SHAPES + [(64, 8192, 128), (4096, 64, 4096)]:
+        assert lib.matmul_f32_split(M, N, K) == gather_ops.matmul_split_k(M, N, K)
+
+
 def _gather_cases(dev):
     """Per wrapper: good arguments, and (exception, bad arguments) pairs."""
     i32 = dict(dtype=torch.int32, device=dev)

@@ -230,6 +230,113 @@ def test_probe_plain_matches_pallas_interpret(scripts, key):
     _assert_close(p, got, np.asarray(f(*args)))
 
 
+# --- the matmul kernel's numeric scheme (3xTF32), emulated in float32 ------
+
+F32 = np.float32
+TF32_EDGES = {
+    "zero": [0.0, -0.0],
+    "subnormal": [np.nextafter(F32(0), F32(1)), -np.nextafter(F32(0), F32(1)),
+                  np.finfo(F32).tiny - np.nextafter(F32(0), F32(1)),
+                  -(np.finfo(F32).tiny - np.nextafter(F32(0), F32(1)))],
+    # the largest TF32 value, and the largest float32 that rounds to it
+    "max finite": [np.uint32(0x7F7FE000).view(F32), np.uint32(0xFF7FE000).view(F32),
+                   np.uint32(0x7F7FEFFF).view(F32), np.uint32(0xFF7FEFFF).view(F32)],
+}
+
+
+def _tf32_cases(kind):
+    if kind == "random":
+        rng = np.random.default_rng(7)
+        x = rng.normal(size=4096) * np.exp2(rng.integers(-120, 120, size=4096))
+        return x.astype(F32)
+    return np.array(TF32_EDGES[kind], dtype=F32)
+
+
+@pytest.mark.parametrize("kind", ["random", *TF32_EDGES])
+def test_tf32_round_splits_exactly(kind):
+    """hi = tf32(x) has its low 13 bits zero, lies within half a TF32 ulp
+    of x, and x - hi is exact in float32: hi + (x - hi) == x."""
+    x = torch.from_numpy(_tf32_cases(kind))
+    hi = gather_ops.tf32_round(x)
+    assert torch.isfinite(hi).all()
+    assert (hi.view(torch.int32) & 0x1FFF).eq(0).all()
+    # TF32 keeps 11 significant bits; below 2**-126 its spacing is 2**-136
+    ulp = torch.ldexp(torch.ones_like(x, dtype=torch.float64),
+                      torch.frexp(x.double())[1].clamp(min=-125) - 11)
+    assert ((hi.double() - x.double()).abs() <= ulp / 2).all()
+    assert torch.equal(hi + (x - hi), x)
+    lo = gather_ops.tf32_round(x - hi)
+    assert (lo.view(torch.int32) & 0x1FFF).eq(0).all()
+
+
+def test_tf32_round_ties_away_and_overflow():
+    """Exact ties round away from zero, as cvt.rna does; a magnitude past
+    the largest TF32 value rounds to infinity (no .satfinite)."""
+    tie = np.array([1 + 2.0**-11, 3 + 2.0**-10, 2.0**-130 + 2.0**-137],
+                   dtype=np.float64)
+    x = torch.from_numpy(np.concatenate([tie, -tie]).astype(F32))
+    hi = gather_ops.tf32_round(x)
+    assert (hi.abs() > x.abs()).all()
+    assert torch.equal(hi[:3], -hi[3:])
+    big = torch.tensor([np.finfo(F32).max, -np.finfo(F32).max])
+    assert torch.equal(gather_ops.tf32_round(big),
+                       torch.tensor([float("inf"), float("-inf")]))
+
+
+def _mm_inputs(scripts):
+    a, b = _jax_args(scripts, "probe", ("mm_a", "mm_b"))
+    return (a, b), (torch.tensor(np.asarray(a)), torch.tensor(np.asarray(b)))
+
+
+@pytest.mark.parametrize("ref", ["jnp", "pallas"])
+def test_3xtf32_emulation_matches_script(scripts, ref):
+    """The kernel's splits and three products, in plain float32, against
+    k_mm at X2's own data within 1e-5 * max(1, |C|_inf)."""
+    (ja, jb), (a, b) = _mm_inputs(scripts)
+    if ref == "jnp":
+        want = np.asarray(jnp.dot(ja, jb, precision=HIGHEST))
+    else:
+        want = np.asarray(pl.pallas_call(
+            k_mm, out_shape=jax.ShapeDtypeStruct((data.R, data.C), jnp.float32),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)(ja, jb))
+    got = gather_ops.matmul_3xtf32_emulated(a, b).numpy()
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=REL_TOL * max(1.0, np.abs(want).max()))
+
+
+def test_1xtf32_misses_the_tolerance(scripts):
+    """Negative control: one TF32 product (hi x hi) is ~30x outside the
+    tolerance that three pass, at the same shape and data."""
+    (ja, jb), (a, b) = _mm_inputs(scripts)
+    want = np.asarray(jnp.dot(ja, jb, precision=HIGHEST))
+    one = (gather_ops.tf32_round(a) @ gather_ops.tf32_round(b)).numpy()
+    tol = REL_TOL * max(1.0, np.abs(want).max())
+    assert np.abs(one - want).max() > 10 * tol
+
+
+SPLIT_SHAPES = [(512, 1024, 128), (2048, 512, 2048), (1, 4, 4), (65, 1028, 132),
+                (130, 36, 260), (64, 8192, 128), (4096, 64, 4096), (256, 96, 128)]
+
+
+@pytest.mark.parametrize("M,K,N", SPLIT_SHAPES)
+def test_matmul_split_k(M, K, N):
+    """The depth split: a power of two up to MM_MAX_SPLIT and up to the
+    number of 32-deep tiles, the largest whose blocks fit on MM_SMS SMs;
+    8 at the probe's shape, 1 at 2048 x 512 x 2048."""
+    ks = gather_ops.matmul_split_k(M, N, K)
+    tiles = -(-M // 64) * -(-N // 128)
+    depth_tiles = -(-K // 32)
+    assert ks in (1, 2, 4, 8) and ks <= gather_ops.MM_MAX_SPLIT
+    assert ks == 1 or (tiles * ks <= gather_ops.MM_SMS and ks <= depth_tiles)
+    bigger = 2 * ks
+    assert (bigger > gather_ops.MM_MAX_SPLIT or bigger > depth_tiles
+            or tiles * bigger > gather_ops.MM_SMS)
+    expect = {(512, 1024, 128): 8, (2048, 512, 2048): 1, (1, 4, 4): 1}
+    if (M, K, N) in expect:
+        assert ks == expect[(M, K, N)]
+
+
 # --- duplicate indices: the last occurrence wins, in both packages --------
 
 def test_last_occurrence():
