@@ -31,6 +31,21 @@ with a nonzero exit and no "ok" line:
   7. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
                   estimate, with the kernel's launch count from that run
                   only; then 25 more iterations to time a warm cycle
+  8. predict      predict_field at 2,000 new sites in the data's lon/lat
+                  box (m = 10) and predict_fixed_effects on 14 covariate
+                  columns, finite and of the right shapes; then the
+                  conditional draws card against CPU on a 400-site fit,
+                  same retained samples and normals, tolerance 1e-3 *
+                  max(1, |w|_inf)
+  9. save/load    save the fit, load it on the card (states and records bit
+                  for bit) and resume it for 25 iterations
+ 10. matern       initialize with matern_sphere at full width; the factor
+                  build's proposal log-det difference at the Matérn probe's
+                  (range, nu) against the float64 oracle (tolerance 1e-2),
+                  then run 25 iterations and estimate the smoothness
+
+Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
+counts the sweep kernel's launches from zero and needs one per iteration.
 
 The line before last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
@@ -52,13 +67,19 @@ MM_TOL_REL = 1e-5   # matmul against plain: 1e-5 * max(1, |C|_inf)
 # (M, K, N) across every edge of the matmul's 64 x 128 x 32 tiles
 MM_RAGGED = ((1, 4, 4), (65, 1028, 132), (512, 1024, 128), (130, 36, 260),
              (2048, 512, 2048))
+# the Matérn probe's (range, nu) and its proposal (experiments/matern_probe.py,
+# matern_probe_cpu.json: 2.2e-3 at 58k real sites on the CPU)
+MATERN_THETA = (0.006120802718214691, 0.75)
+MATERN_THETA_P = (0.006120802718214691 * 1.02, 0.7525)
+LOGDET_TOL = 1e-2   # proposal log-det difference, card against float64
+N_PREDICT = 2000
 
 
 def phase(name, msg, t0):
     print(f"[{name}] {msg} ({time.perf_counter() - t0:.3f} s)", flush=True)
 
 
-def small_parity(dev):
+def small_parity(dev, family="exponential_sphere"):
     """3 iterations on the card against the CPU, same draws."""
     import numpy as np
     import torch
@@ -70,7 +91,7 @@ def small_parity(dev):
     from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
 
     locs, y, X = synthetic_heavy_metals(n=400, p=2, seed=5)
-    kw = dict(X_locs=X, m=5, stationary_covfun="exponential_sphere",
+    kw = dict(X_locs=X, m=5, stationary_covfun=family,
               n_chains=2, seed=3, verbose=False)
     runs = {}
     for d in ("cpu", dev):
@@ -262,6 +283,141 @@ def gather_probes(dev):
     return out
 
 
+def run_counted(mc, n_iterations, **kw):
+    """``run`` with the sweep kernel's launches counted from zero; fails
+    unless every iteration launched it and every state is finite."""
+    import torch
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.ops import sweep
+
+    start = mc.iterations
+    t = time.perf_counter()
+    sweep.chromatic_sweeps.launches = 0
+    mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=n_iterations,
+                            **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    launches = sweep.chromatic_sweeps.launches
+    if launches < n_iterations:
+        raise RuntimeError(f"run launched the sweep kernel {launches} times "
+                           f"in {n_iterations} iterations")
+    if mc.iterations != start + n_iterations:
+        raise RuntimeError(f"iterations {start} -> {mc.iterations}, not "
+                           f"+{n_iterations}")
+    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
+              "field", "tk_ancillary", "tk_sufficient"):
+        if not bool(torch.isfinite(getattr(mc.states, f)).all()):
+            raise RuntimeError(f"non-finite {f} after run")
+    return mc, secs, launches
+
+
+def matern_logdet(mc):
+    """The factor build's proposal log-determinant difference
+    sum_i dlog L_ii between the Matérn probe's two shape vectors
+    (experiments/matern_probe.py), on the card, against the float64 oracle
+    numpy_ref.np_vecchia_linv on the same graph and float64 coordinates."""
+    import numpy as np
+    import torch
+
+    from nngp_tpu_torch.ops.numpy_ref import np_vecchia_linv
+    from nngp_tpu_torch.ops.vecchia import vecchia_linv
+    from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
+
+    covfun = mc.space_time_model["covfun"]["stationary_covfun"]
+    coords = lonlat_to_xyz(mc.locs)
+    out = {}
+    for label, nat in (("theta", MATERN_THETA), ("theta_p", MATERN_THETA_P)):
+        linv = vecchia_linv(mc.graph, torch.tensor([nat], device=mc.device))
+        card = torch.log(linv[0, :, 0].double()).cpu().numpy()
+        oracle = np.log(np_vecchia_linv(coords, mc.NNarray, covfun,
+                                        np.asarray(nat))[:, 0])
+        out[label] = (card, oracle)
+    card = float((out["theta_p"][0] - out["theta"][0]).sum())
+    oracle = float((out["theta_p"][1] - out["theta"][1]).sum())
+    return card, oracle
+
+
+def predict_parity(dev):
+    """predict_field's conditional draws on the card against the CPU: a
+    400-site fit run on the card, loaded on both devices from one file, the
+    same retained samples and the same normals z at 100 new sites."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch import prediction as P
+    from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
+
+    locs, y, X = synthetic_heavy_metals(n=400, p=2, seed=5)
+    mc = nngp_tpu_torch.initialize(
+        locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+        n_chains=2, seed=3, device=dev, verbose=False)
+    mc = nngp_tpu_torch.run(mc, n_iterations_update=20, field_thinning=0.5,
+                            verbose=False, Gelman_Rubin_Brooks_stop=(0., 0.))
+    new = synthetic_heavy_metals(n=100, p=0, seed=6)[0]
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "fit.pkl")
+        nngp_tpu_torch.save(mc, path)
+        fits = {d: nngp_tpu_torch.load(path, device=d) for d in ("cpu", dev)}
+    names = list(mc.space_time_model["covfun"]["shape_params"])
+    stored = P._stored_idx(mc, 0.5)
+    z = torch.randn(len(stored), len(new),
+                    generator=torch.Generator().manual_seed(2))
+    draws = {}
+    for d, fit in fits.items():
+        g = P._joint_graph(fit, new, 10).to(d)
+        draws[str(d)] = P.conditional_field(
+            g, names, fit.graph.n, *P.retained_samples(fit.records[0], stored,
+                                                       d), z.to(d)).cpu()
+    cpu, card = draws["cpu"], draws[str(dev)]
+    if not bool(torch.isfinite(card).all()):
+        raise RuntimeError("predict parity: non-finite draws on the card")
+    err = (cpu - card).abs().max().item() / max(1.0, cpu.abs().max().item())
+    if err > PARITY_TOL:
+        raise RuntimeError(f"predict parity: scaled max diff {err:.3e} > "
+                           f"{PARITY_TOL}")
+    return err
+
+
+def save_load(mc, dev):
+    """save the fit, load it on the card: states and records bit for bit."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import nngp_tpu_torch
+
+    with tempfile.TemporaryDirectory() as td:
+        path = os.path.join(td, "fit.pkl")
+        t = time.perf_counter()
+        nngp_tpu_torch.save(mc, path)
+        save_s = time.perf_counter() - t
+        size = os.path.getsize(path)
+        t = time.perf_counter()
+        back = nngp_tpu_torch.load(path, device=dev)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t
+    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
+              "field", "tk_ancillary", "tk_sufficient", "prop_mean",
+              "prop_m2", "prop_count"):
+        a, b = getattr(mc.states, f), getattr(back.states, f)
+        if b.device != a.device or not torch.equal(a, b):
+            raise RuntimeError(f"save/load: state {f} differs")
+    for ra, rb in zip(mc.records, back.records):
+        for k, v in ra.items():
+            same = (np.array_equal(v, rb[k]) if isinstance(v, np.ndarray)
+                    else v == rb[k])
+            if not same:
+                raise RuntimeError(f"save/load: record {k} differs")
+    return back, save_s, load_s, size
+
+
 GATHER_KERNELS = (
     ("gather_sweeps", "nngp_tpu_torch/csrc/gather_sweep.cu",
      "experiments/gather_bench.py:92"),
@@ -311,10 +467,11 @@ def main():
         print(f"  {name}.cu -> sm_90a: " + " | ".join(ptxas))
     phase("build", f"{len(libs)} sources built in parallel", t)
 
-    t = time.perf_counter()
-    worst = small_parity(dev)
-    phase("small parity", f"3 iterations, 400 sites, 2 chains: scaled max "
-          f"diff card vs CPU {worst:.3e} <= {PARITY_TOL}", t)
+    for family in ("exponential_sphere", "matern_sphere"):
+        t = time.perf_counter()
+        worst = small_parity(dev, family)
+        phase("small parity", f"{family}, 3 iterations, 400 sites, 2 chains: "
+              f"scaled max diff card vs CPU {worst:.3e} <= {PARITY_TOL}", t)
 
     t = time.perf_counter()
     locs, y, X = synthetic_heavy_metals()
@@ -341,20 +498,8 @@ def main():
         for k, v in gp.items()), t)
 
     t = time.perf_counter()
-    sweep.chromatic_sweeps.launches = 0
-    mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=25,
-                            field_thinning=0.5)
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t
-    launches = sweep.chromatic_sweeps.launches
+    mc, run_s, launches = run_counted(mc, 25, field_thinning=0.5)
     est = nngp_tpu_torch.estimate(mc)
-    if launches < 25:
-        raise RuntimeError(f"the main path launched the sweep kernel "
-                           f"{launches} times in 25 iterations")
-    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
-              "field", "tk_ancillary", "tk_sufficient"):
-        if not bool(torch.isfinite(getattr(mc.states, f)).all()):
-            raise RuntimeError(f"non-finite {f} after run")
     for rec in mc.records:
         if rec["log_scale"].shape[0] != 25 or rec["field"].shape != (12, mc.graph.n):
             raise RuntimeError("records do not hold 25 iterations")
@@ -369,12 +514,72 @@ def main():
          for nm, row in zip(tab["names"], tab["table"])}) + f" columns {tab['columns']}")
 
     t = time.perf_counter()
-    mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=25,
-                            field_thinning=0.5, verbose=False)
-    torch.cuda.synchronize()
-    warm_s = time.perf_counter() - t
+    mc, warm_s, _ = run_counted(mc, 25, field_thinning=0.5, verbose=False)
     phase("warm cycle", f"25 more iterations: {1e3 * warm_s / 25:.2f} "
           f"ms/iteration, iterations now {mc.iterations}", t)
+
+    t = time.perf_counter()
+    rng = np.random.default_rng(7)
+    lo, hi = mc.locs.min(0), mc.locs.max(0)
+    new = rng.uniform(lo, hi, size=(N_PREDICT, 2))
+    pred = nngp_tpu_torch.predict_field(mc, new, m=10)
+    torch.cuda.synchronize()
+    pred_s = time.perf_counter() - t
+    Xp = {f"x{j}": rng.normal(size=N_PREDICT) for j in range(14)}
+    fe = nngp_tpu_torch.predict_fixed_effects(mc, Xp, add_intercept=True)
+    n_kept = len(pred["predicted_field_samples"][0])
+    for s_ in pred["predicted_field_samples"]:
+        if s_.shape != (n_kept, N_PREDICT) or not np.isfinite(s_).all():
+            raise RuntimeError("predict_field: bad or non-finite samples")
+    for out, key in ((pred, "predicted_field_summary"),
+                     (fe, "predicted_fixed_effects_summary")):
+        tab = out[key]["table"]
+        if tab.shape != (N_PREDICT, 5) or not np.isfinite(tab).all():
+            raise RuntimeError(f"{key}: shape {tab.shape} or non-finite")
+    err = predict_parity(dev)
+    phase("predict", f"predict_field at {N_PREDICT} new sites, m = 10, "
+          f"{mc.n_chains} x {n_kept} retained samples: {pred_s:.3f} s; "
+          f"predict_fixed_effects 14 columns ok; card vs CPU at 400 sites, "
+          f"same samples and z: scaled max diff {err:.3e} <= {PARITY_TOL}", t)
+
+    t = time.perf_counter()
+    back, save_s, load_s, size = save_load(mc, dev)
+    back, resume_s, resume_launches = run_counted(back, 25, field_thinning=0.5,
+                                                  verbose=False)
+    phase("save/load", f"save {save_s:.3f} s ({size / 2**20:.1f} MiB), "
+          f"load on the card {load_s:.3f} s, states and records bit for bit; "
+          f"resumed 25 iterations ({1e3 * resume_s / 25:.2f} ms/iteration, "
+          f"sweep kernel launches {resume_launches}), iterations "
+          f"{mc.iterations} -> {back.iterations}", t)
+    del back
+
+    t = time.perf_counter()
+    mm = nngp_tpu_torch.initialize(
+        locs, y, X_locs=X, m=5, stationary_covfun="matern_sphere",
+        n_chains=3, seed=1, device=dev, verbose=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t
+    card, oracle = matern_logdet(mm)
+    if not abs(card - oracle) <= LOGDET_TOL:
+        raise RuntimeError(f"Matérn proposal log-det difference: card {card} "
+                           f"vs float64 {oracle}, error {card - oracle:.3e} "
+                           f"> {LOGDET_TOL}")
+    mm, m_run_s, m_launches = run_counted(mm, 25, field_thinning=0.5,
+                                          verbose=False)
+    m_tab = nngp_tpu_torch.estimate(mm)["covariance_params"]["GpGp_covparams"]
+    if "smoothness" not in m_tab["names"] or not np.isfinite(
+            m_tab["table"]).all():
+        raise RuntimeError(f"Matérn estimate: {m_tab['names']} "
+                           f"{m_tab['table']}")
+    phase("matern", f"matern_sphere n={mm.graph.n}, 3 chains: initialize "
+          f"{init_s:.3f} s; proposal log-det difference card {card:.6f} vs "
+          f"float64 {oracle:.6f}, error {card - oracle:.3e} <= {LOGDET_TOL}; "
+          f"run 25 iterations {1e3 * m_run_s / 25:.2f} ms/iteration (cold; "
+          f"exponential {1e3 * run_s / 25:.2f}), sweep kernel launches "
+          f"{m_launches}", t)
+    print("  GpGp_covparams " + json.dumps(
+        {nm: [round(float(v), 6) for v in row]
+         for nm, row in zip(m_tab["names"], m_tab["table"])}))
 
     print(json.dumps({"kernels": [{
         "name": "chromatic_sweeps", "route": "cuda",

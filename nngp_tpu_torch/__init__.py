@@ -8,12 +8,23 @@ tensor dimension, and the chromatic Gibbs sweep — a Pallas kernel in
 with a plain PyTorch twin for CPU tensors.  ``nngp_tpu_torch.experiments``
 runs the gather microbenchmarks of ``experiments/`` on CUDA kernels.
 
-Public API: ``initialize`` -> ``run`` -> ``estimate``, plus the diagnostics
-``Gelman_Rubin_Brooks`` and ``ESS``.
+Public API: ``initialize`` -> ``run`` -> ``estimate`` -> ``predict_field``
+/ ``predict_fixed_effects``, ``save`` / ``load`` (files shared with
+``nngp_tpu``), plus the diagnostics ``Gelman_Rubin_Brooks`` and ``ESS``.
 """
 
-from nngp_tpu_torch.api import estimate, initialize, run
+from nngp_tpu_torch.api import (
+    estimate,
+    initialize,
+    load,
+    predict_field,
+    predict_fixed_effects,
+    run,
+    save,
+)
 from nngp_tpu_torch.diagnostics.ess import ESS
 from nngp_tpu_torch.diagnostics.grb import Gelman_Rubin_Brooks
 
-__all__ = ["initialize", "run", "estimate", "Gelman_Rubin_Brooks", "ESS"]
+__all__ = ["initialize", "run", "estimate", "predict_field",
+           "predict_fixed_effects", "save", "load", "Gelman_Rubin_Brooks",
+           "ESS"]

@@ -1,21 +1,27 @@
-"""Public API: initialize -> run -> estimate.
+"""Public API: initialize -> run -> estimate -> predict_*, save/load.
 
 Port of ``nngp_tpu/api.py`` (the reference's mcmc_nngp_initialize,
-mcmc_nngp_run and mcmc_nngp_estimate).  ``initialize`` runs the host
+mcmc_nngp_run, mcmc_nngp_estimate, mcmc_nngp_predict_* and saveRDS/readRDS
+of the fit, Heavy_metals/run_script.R:17).  ``initialize`` runs the host
 preprocessing once (the same NumPy code as ``nngp_tpu``, so the same
 graph and initial states for the same inputs and seed) and puts every
 tensor on the ``device`` it is given; ``run`` advances all chains together
 and can be called again on the same ``MCMC`` object to continue sampling.
+``save`` writes ``nngp_tpu.save``'s file and ``load`` reads either
+package's, so a fit saved by one package resumes in the other.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, replace
 
 import numpy as np
 import torch
 
+from nngp_tpu_torch import interop
 from nngp_tpu_torch.diagnostics.ess import ESS as _ESS
 from nngp_tpu_torch.diagnostics.grb import Gelman_Rubin_Brooks as _GRB
 from nngp_tpu_torch.models.gaussian import (
@@ -25,7 +31,7 @@ from nngp_tpu_torch.models.gaussian import (
     run_cycle,
 )
 from nngp_tpu_torch.ops.covariance import require_supported, shape_param_names
-from nngp_tpu_torch.preprocess.dedupe import dedupe_and_match
+from nngp_tpu_torch.preprocess.dedupe import ObsMaps, dedupe_and_match
 from nngp_tpu_torch.preprocess.design import Design, build_design
 from nngp_tpu_torch.preprocess.graph import VecchiaGraph, build_graph
 from nngp_tpu_torch.preprocess.ordering import reorder_locations
@@ -215,8 +221,10 @@ def initialize(
     chains = []
     for _ in range(n_chains):
         shape0 = []
-        for _nm in names:
-            if stationary_covfun.endswith("scaledim"):
+        for nm in names:
+            if nm.startswith("qlogis"):
+                shape0.append(rng.normal())
+            elif stationary_covfun.endswith("scaledim"):
                 shape0.append(_draw_range([len(shape0)]))
             elif stationary_covfun.endswith("spacetime"):
                 if len(shape0) == 0:
@@ -368,6 +376,10 @@ def run(
     field_record_columns=None,
     compute_diagnostics: bool = True,
     covparams_steps: int = 1,
+    save_name: str | None = None,
+    log_jsonl: str | None = None,
+    plot_trace: str | None = None,
+    plot_beta: bool = False,
 ) -> MCMC:
     """Cycle loop with per-cycle diagnostics and early stop
     (mcmc_nngp_run.R:1-52).  All chains advance together; the records of a
@@ -375,7 +387,12 @@ def run(
 
     ``field_record_columns`` (site indices) records only those columns of
     each kept field snapshot; ``compute_diagnostics=False`` skips the
-    per-cycle GRB/ESS (the early stop is then inert)."""
+    per-cycle GRB/ESS (the early stop is then inert).  After each cycle, in
+    this order: ``plot_trace`` (a directory) receives trace_covparms.png,
+    and trace_beta.png with ``plot_beta`` (mcmc_nngp_run.R:36-37; needs
+    matplotlib); the diagnostics; ``log_jsonl`` gets one JSON line (cycle,
+    iteration, elapsed_s, cycle_s, R_hat); ``save_name`` receives the fit
+    (:func:`save`); then the early-stop test."""
     _full_f32_matmuls()
     cfg = UpdateConfig(
         n_iterations=int(n_iterations_update),
@@ -390,6 +407,7 @@ def run(
     for cycle in range(1, n_cycles + 1):
         if verbose:
             print(f"cycle = {cycle}")
+        t_cycle = time.time()
         cycle_start = mc.iterations
         # field thinning (ref round(it*t)==it*t rule, update_Gaussian.R:56):
         # iteration it writes its snapshot to record row slots[it-1]
@@ -412,7 +430,23 @@ def run(
             rec["iterations"].append((cycle_start + T,
                                       time.time() - mc.t_begin))
 
+        if plot_trace is not None:
+            from nngp_tpu_torch.diagnostics.plots import (
+                raw_chains_plots_beta,
+                raw_chains_plots_covparms,
+            )
+
+            os.makedirs(plot_trace, exist_ok=True)
+            raw_chains_plots_covparms(
+                mc.records, burn_in,
+                path=os.path.join(plot_trace, "trace_covparms.png"))
+            if plot_beta:
+                raw_chains_plots_beta(
+                    mc.records, burn_in,
+                    path=os.path.join(plot_trace, "trace_beta.png"))
+
         # diagnostics + early stop (mcmc_nngp_run.R:36-46)
+        grb = None
         if compute_diagnostics and mc.n_chains >= 2:
             grb = _GRB(mc.records, burn_in)
             mc.diagnostics["Gelman_Rubin_Brooks"].append(grb)
@@ -421,9 +455,24 @@ def run(
                 with np.printoptions(precision=3, suppress=True):
                     print("Gelman-Rubin-Brooks R-hat : ")
                     print(dict(zip(grb["names"], np.round(grb["R_hat"], 3))))
-            if (grb["R_hat"][0] < Gelman_Rubin_Brooks_stop[0]
-                    or np.all(grb["R_hat"][1:] < Gelman_Rubin_Brooks_stop[1])):
-                break
+        if log_jsonl is not None:
+            entry = {
+                "cycle": cycle,
+                "iteration": mc.iterations,
+                "elapsed_s": round(time.time() - mc.t_begin, 3),
+                "cycle_s": round(time.time() - t_cycle, 3),
+            }
+            if grb is not None:
+                entry["R_hat"] = dict(
+                    zip(grb["names"], np.round(grb["R_hat"], 4).tolist()))
+            with open(log_jsonl, "a") as f:
+                f.write(json.dumps(entry) + "\n")
+        if save_name:
+            save(mc, save_name)
+        if grb is not None and (
+                grb["R_hat"][0] < Gelman_Rubin_Brooks_stop[0]
+                or np.all(grb["R_hat"][1:] < Gelman_Rubin_Brooks_stop[1])):
+            break
     return mc
 
 
@@ -432,3 +481,114 @@ def estimate(mc: MCMC, burn_in: float = 0.5):
     from nngp_tpu_torch.estimation import mcmc_nngp_estimate
 
     return mcmc_nngp_estimate(mc, burn_in)
+
+
+def predict_field(mc: MCMC, predicted_locs, burn_in: float = 0.5, m: int = 10,
+                  sample_chunk: int = 64, n_cores=None):
+    """Conditional simulation of the latent field at ``predicted_locs``
+    (mcmc_nngp_predict.R:1-60) on the fit's device.  ``n_cores`` is
+    accepted for the reference's signature and ignored."""
+    from nngp_tpu_torch.prediction import mcmc_nngp_predict_field
+
+    return mcmc_nngp_predict_field(mc, predicted_locs, burn_in, m, sample_chunk)
+
+
+def predict_fixed_effects(mc: MCMC, X_predicted, burn_in: float = 0.5,
+                          match_field_thinning: bool = True,
+                          add_intercept: bool = False, n_cores=None):
+    """Fixed-effect samples at new covariates (mcmc_nngp_predict.R:67-104)."""
+    from nngp_tpu_torch.prediction import mcmc_nngp_predict_fixed_effects
+
+    return mcmc_nngp_predict_fixed_effects(
+        mc, X_predicted, burn_in, match_field_thinning, add_intercept)
+
+
+def save(mc: MCMC, path: str) -> None:
+    """Write the whole fit (saveRDS analog, run_script.R:17) as
+    ``nngp_tpu.save`` does, key for key, with NumPy leaves only: a fit
+    saved here loads in either package."""
+    g = mc.graph
+    host = {
+        "locs": mc.locs,
+        "observed_locs": mc.observed_locs,
+        "observed_field": mc.observed_field,
+        "space_time_model": mc.space_time_model,
+        "records": mc.records,
+        "diagnostics": mc.diagnostics,
+        "n_chains": mc.n_chains,
+        "seed": mc.seed,
+        "t_begin": mc.t_begin,
+        "NNarray": mc.NNarray,
+        "states": mc.states,
+        "design": mc.design,
+        "m": mc.NNarray.shape[1] - 1,
+        # the observation<->location maps and NNarray let load() rebuild
+        # the graph deterministically, with no float matching of locations
+        "locs_match": g.locs_match.cpu().numpy(),
+        "hctam_scol_1": g.hctam_scol_1.cpu().numpy(),
+        "obs_per_loc": g.obs_per_loc.cpu().numpy(),
+        "field_record_columns": mc.field_record_columns,
+    }
+    interop.dump_fit(host, path)
+
+
+def load(path: str, device="cpu") -> MCMC:
+    """Rebuild a fit saved by :func:`save` or by ``nngp_tpu.save`` (readRDS
+    analog) on ``device``; ``run`` resumes it where it stopped."""
+    device = torch.device(device)
+    _full_f32_matmuls()
+    host = interop.load_fit(path)
+    covfun = host["space_time_model"]["covfun"]["stationary_covfun"]
+    require_supported(covfun)
+    timings = {}
+    if "locs_match" in host:
+        maps = ObsMaps(
+            locs=np.asarray(host["locs"]),
+            locs_match=np.asarray(host["locs_match"]),
+            hctam_scol_1=np.asarray(host["hctam_scol_1"]),
+            obs_per_loc=np.asarray(host["obs_per_loc"]),
+        )
+        graph, NN = build_graph(maps, m=host["m"], covfun=covfun,
+                                NN=host["NNarray"], timings=timings)
+    else:  # files written before the maps were saved
+        maps = dedupe_and_match(
+            host["observed_locs"],
+            perm_fn=lambda L: _match_permutation(L, host["locs"]))
+        graph, NN = build_graph(maps, m=host["m"], covfun=covfun,
+                                timings=timings)
+    design = host["design"]
+    h1 = np.asarray(graph.hctam_scol_1)
+    X_locs_u = (design.X[h1][:, design.locs_cols] if design.p_locs > 0
+                else np.zeros((graph.n, 0)))
+    data = _model_data(host["observed_field"], design, X_locs_u, np.float32,
+                       _range_cap_from_coords(graph.kernel_coords),
+                       _range_floor_from_graph(graph), device)
+    return MCMC(
+        locs=host["locs"],
+        observed_locs=host["observed_locs"],
+        observed_field=host["observed_field"],
+        graph=graph.to(device),
+        design=design,
+        data=data,
+        space_time_model=host["space_time_model"],
+        states=interop.chain_state(host["states"], device),
+        records=host["records"],
+        diagnostics=host["diagnostics"],
+        n_chains=host["n_chains"],
+        seed=host["seed"],
+        t_begin=host["t_begin"],
+        NNarray=NN,
+        device=device,
+        setup_timings=timings,
+        field_record_columns=host.get("field_record_columns"),
+    )
+
+
+def _match_permutation(deduped_locs, target_locs):
+    """Permutation mapping first-occurrence-deduped locs onto a saved
+    ordering (files without the saved index maps)."""
+    key = {tuple(row): i for i, row in enumerate(np.asarray(target_locs))}
+    order = np.array([key[tuple(r)] for r in np.asarray(deduped_locs)])
+    perm = np.empty(len(order), dtype=np.int64)
+    perm[order] = np.arange(len(order))
+    return perm

@@ -186,14 +186,23 @@ def _scale_support(data, new_ls):
     return new_ls > torch.log(data.var_y) - 18.42  # log(1e-8)
 
 
-def _range_support(cfg, data, natural):
-    """Every natural range within [range_floor, range_cap] (per chain)."""
+def _range_support(cfg, data, natural, sampled):
+    """Per chain: every natural range within [range_floor[g], range_cap]
+    (g counts the range parameters), and every qlogis_* (Matérn
+    smoothness) within |s| <= 6 on the sampled scale.  Beyond |s| ~ 6 the
+    transform nu = .5 + .5 sigmoid(s) saturates, the likelihood is flat in
+    s and a flat-prior chain drifts along the tail (nngp_tpu's
+    ``_range_support``); |s| <= 6 spans nu in [0.5012, 0.9988]."""
     ok = torch.ones(natural.shape[0], dtype=torch.bool, device=natural.device)
+    g = 0
     for j, nm in enumerate(cfg.shape_names):
         if nm.startswith("log"):
             ok = ok & (natural[:, j] <= data.range_cap)
             if data.range_floor is not None:
-                ok = ok & (natural[:, j] >= data.range_floor[j])
+                ok = ok & (natural[:, j] >= data.range_floor[g])
+            g += 1
+        elif nm.startswith("qlogis"):
+            ok = ok & (sampled[:, j].abs() <= 6.0)
     return ok
 
 
@@ -266,7 +275,7 @@ def _ancillary_step(graph, data, cfg, state, linv, mu, z, u, C=None):
     prec = torch.exp(-state.log_noise_variance)
     llr = -0.5 * prec * _obs_sse_diff(data, new_field, state.field, mu,
                                       state.beta_0, graph)
-    accept = (_range_support(cfg, data, natural_new)
+    accept = (_range_support(cfg, data, natural_new, new_shape)
               & _scale_support(data, new_ls)
               & (torch.exp(new_ls) < data.var_y)
               & (llr > torch.log(u)))
@@ -293,7 +302,7 @@ def _sufficient_step(graph, data, cfg, state, linv, z, u, C=None):
                                 graph)
     accept = ((torch.exp(new_ls) < data.var_y)
               & _scale_support(data, new_ls)
-              & _range_support(cfg, data, natural_new)
+              & _range_support(cfg, data, natural_new, new_shape)
               & (gp_ratio > torch.log(u)))
     state = replace(
         state,

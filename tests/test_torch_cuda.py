@@ -122,6 +122,89 @@ def test_gibbs_iterations_card_match_cpu():
                                    err_msg=f)
 
 
+# --- Matérn, prediction, save/load on the card -------------------------------
+
+@pytest.mark.gpu
+def test_matern_vecchia_linv_card_matches_cpu():
+    """The Matérn factor on the card and on the CPU at 2.5x the median
+    neighbour distance, nu 0.75: both within 1e-3 of the float64 oracle's
+    log-determinant, the card's rows within 2x the CPU's error."""
+    from nngp_tpu_torch.ops.numpy_ref import np_vecchia_linv
+    from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
+
+    dev = _card()
+    locs, y, X = synthetic_heavy_metals(n=500, p=2, seed=9)
+    mc = nngp_tpu_torch.initialize(
+        locs, y, X_locs=X, m=5, stationary_covfun="matern_sphere",
+        n_chains=C, seed=4, verbose=False)
+    d2 = mc.graph.nn_dist2[..., 0]
+    rho = 2.5 * float(torch.sqrt(d2[d2 > 0]).median())
+    nat = torch.tensor([[rho, 0.75]])
+    cpu = vecchia_linv(mc.graph, nat)[0].double().numpy()
+    card = vecchia_linv(mc.graph.to(dev), nat.to(dev))[0].double().cpu().numpy()
+    oracle = np_vecchia_linv(lonlat_to_xyz(mc.locs), mc.NNarray,
+                             "matern_sphere", np.array([rho, 0.75]))
+    for got in (cpu, card):
+        assert np.isfinite(got).all()
+        assert abs(np.log(got[:, 0]).sum() - np.log(oracle[:, 0]).sum()) < 1e-3
+    assert np.abs(card - oracle).max() <= 2 * np.abs(cpu - oracle).max() + 1e-5
+
+
+@pytest.mark.gpu
+def test_predict_field_card_matches_cpu(tmp_path):
+    """Conditional draws on the card and the CPU from one saved fit, the
+    same retained samples and normals: within 1e-3 * max(1, |w|_inf)."""
+    from nngp_tpu_torch import prediction as P
+
+    dev = _card()
+    mc = nngp_tpu_torch.run(_mc("cpu"), n_iterations_update=10,
+                            field_thinning=0.5, verbose=False,
+                            Gelman_Rubin_Brooks_stop=(0.0, 0.0))
+    path = str(tmp_path / "fit.pkl")
+    nngp_tpu_torch.save(mc, path)
+    new = synthetic_heavy_metals(n=60, p=0, seed=3)[0]
+    names = list(mc.space_time_model["covfun"]["shape_params"])
+    stored = P._stored_idx(mc, 0.5)
+    z = torch.randn(len(stored), len(new),
+                    generator=torch.Generator().manual_seed(5))
+    out = {}
+    for d in ("cpu", dev):
+        fit = nngp_tpu_torch.load(path, device=d)
+        g = P._joint_graph(fit, new, 10).to(d)
+        out[str(d)] = P.conditional_field(
+            g, names, fit.graph.n,
+            *P.retained_samples(fit.records[1], stored, d), z.to(d)).cpu()
+    cpu, card = out["cpu"], out[str(dev)]
+    assert torch.isfinite(card).all()
+    tol = 1e-3 * max(1.0, cpu.abs().max().item())
+    assert (cpu - card).abs().max().item() <= tol
+    pred = nngp_tpu_torch.predict_field(nngp_tpu_torch.load(path, device=dev),
+                                        new)
+    assert all(np.isfinite(s).all() and s.shape == (len(stored), len(new))
+               for s in pred["predicted_field_samples"])
+
+
+@pytest.mark.gpu
+def test_save_and_load_on_card(tmp_path):
+    dev = _card()
+    mc = nngp_tpu_torch.run(_mc(dev), n_iterations_update=5, verbose=False,
+                            Gelman_Rubin_Brooks_stop=(0.0, 0.0))
+    path = str(tmp_path / "fit.pkl")
+    nngp_tpu_torch.save(mc, path)
+    back = nngp_tpu_torch.load(path, device=dev)
+    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
+              "field", "tk_ancillary", "tk_sufficient", "prop_mean",
+              "prop_m2", "prop_count"):
+        a, b = getattr(mc.states, f), getattr(back.states, f)
+        assert b.device == a.device and torch.equal(a, b), f
+    for ra, rb in zip(mc.records, back.records):
+        np.testing.assert_array_equal(ra["field"], rb["field"])
+        np.testing.assert_array_equal(ra["log_scale"], rb["log_scale"])
+    back = nngp_tpu_torch.run(back, n_iterations_update=5, verbose=False)
+    assert back.iterations == 10
+    assert torch.isfinite(back.states.field).all()
+
+
 # --- the gather probes' kernels (nngp_tpu_torch/experiments) ---------------
 
 @pytest.mark.gpu

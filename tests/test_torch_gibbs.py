@@ -36,14 +36,14 @@ STATE_FIELDS = ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
                 "prop_m2", "prop_count")
 
 
-def _problem(p_locs, seed=3, n=300):
+def _problem(p_locs, seed=3, n=300, family="exponential_isotropic"):
     rng = np.random.default_rng(seed)
     locs = rng.uniform(size=(n, 2))
     X = ({f"x{j}": rng.normal(size=n) for j in range(p_locs)}
          if p_locs else None)
     y = rng.normal(size=n) + locs[:, 0]
     mc = nngp_tpu.initialize(locs, y, X_locs=X, m=5, n_chains=C, seed=seed,
-                             stationary_covfun="exponential_isotropic")
+                             stationary_covfun=family)
     return mc
 
 
@@ -119,7 +119,7 @@ def _compare(port_state, jax_states, acc_port, acc_jax, label):
                                       err_msg=f"{label}: accept counts")
 
 
-def _run_both(mc, its, iter_start, am_warm=False):
+def _run_both(mc, its, iter_start, am_warm=False, states=None):
     g = mc.graph
     names = tuple(mc.space_time_model["covfun"]["shape_params"])
     locs_cols = tuple(int(c) for c in mc.design.locs_cols)
@@ -127,7 +127,9 @@ def _run_both(mc, its, iter_start, am_warm=False):
                      locs_cols=locs_cols, chromatic_schedule="flat")
     tcfg = tg.UpdateConfig(n_iterations=len(its), shape_names=names,
                            locs_cols=locs_cols)
-    states = _am_warm(mc, np.random.default_rng(0)) if am_warm else mc.states
+    if states is None:
+        states = (_am_warm(mc, np.random.default_rng(0)) if am_warm
+                  else mc.states)
     g_t, data_t, state_t = from_numpy(g, mc.data, states)
     jstates = [jax.tree.map(lambda x: jnp.asarray(x)[c], states)
                for c in range(C)]
@@ -170,6 +172,59 @@ def test_five_iterations_match_jax(p_locs, am_warm, iter_start):
     n_accepts = _run_both(_problem(p_locs), its=range(20, 25),
                           iter_start=iter_start, am_warm=am_warm)
     assert n_accepts > 0   # the accept parity covered accepted moves too
+
+
+@pytest.mark.parametrize("p_locs", [0, 2])
+def test_matern_one_iteration_matches_jax(p_locs):
+    """matern_isotropic: the Bessel/series factor build inside both MH
+    blocks, same draws, same accept decisions, atol 1e-4."""
+    _run_both(_problem(p_locs, family="matern_isotropic"), its=[0],
+              iter_start=0)
+
+
+def test_matern_five_iterations_match_jax():
+    n_accepts = _run_both(_problem(0, family="matern_isotropic"),
+                          its=range(20, 25), iter_start=0)
+    assert n_accepts > 0
+
+
+def test_matern_smoothness_bound_rejects_in_both():
+    """Chains at s = 6 - 1e-4 on the sampled smoothness: a proposal with
+    s' > 6 must be rejected by the |s| <= 6 support bound of both packages,
+    even though the likelihood is flat there."""
+    mc = _problem(0, family="matern_isotropic")
+    names = tuple(mc.space_time_model["covfun"]["shape_params"])
+    s0 = np.asarray(mc.states.shape).copy()
+    s0[:, -1] = 6.0 - 1e-4
+    states = type(mc.states)(**{**{f: getattr(mc.states, f)
+                                   for f in STATE_FIELDS},
+                                "shape": s0.astype(np.float32)})
+    # the smoothness innovations the iteration will propose (identity AM
+    # factor at prop_count 0): at least one crosses s = 6
+    cfg = JaxConfig(n_iterations=1, shape_names=names, locs_cols=(),
+                    chromatic_schedule="flat")
+    p = np.asarray(mc.states.beta).shape[1]
+    crossing = []
+    for c in range(C):
+        d = replay_draws(jax.random.fold_in(jax.random.key(40 + c), 0), cfg,
+                         mc.graph, p, len(names))
+        tk = np.asarray(states.tk_ancillary)[c]
+        crossing += [z[-1] * np.exp(0.5 * tk) > 1e-4
+                     for z in (d["anc_z"][0], d["suf_z"][0])]
+    assert any(crossing)
+    _run_both(mc, its=[0], iter_start=0, states=states)
+    # the bound alone rejects s' = 6 + eps, in both packages
+    cfg_t = tg.UpdateConfig(n_iterations=1, shape_names=names, locs_cols=())
+    from nngp_tpu.models.gaussian import _range_support as jax_support
+    _, data_t, _ = from_numpy(mc.graph, mc.data, states)
+    for s in (6.0 + 1e-3, -6.0 - 1e-3, 5.99):
+        sampled = np.array([[-1.0, s]], np.float32)
+        natural = np.exp(sampled)
+        got = tg._range_support(cfg_t, data_t, torch.as_tensor(natural),
+                                torch.as_tensor(sampled))
+        want = jax_support(cfg, mc.data, jnp.asarray(natural[0]),
+                           jnp.asarray(sampled[0]))
+        assert bool(got[0]) == bool(want) == (abs(s) <= 6.0)
 
 
 def test_run_records_match_jax_bookkeeping():

@@ -30,7 +30,8 @@ def _np(t):
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-@pytest.mark.parametrize("family", ["exponential_isotropic", "exponential_sphere"])
+@pytest.mark.parametrize("family", ["exponential_isotropic", "exponential_sphere",
+                                    "matern_isotropic", "matern_sphere"])
 def test_initialize_bit_identical(family):
     locs, y, X = _problem(family)
     kw = dict(X_locs=X, m=5, n_chains=2, seed=7, stationary_covfun=family)
@@ -84,11 +85,3 @@ def test_isotropic_proposal_switch():
     mc = nngp_tpu_torch.run(mc, n_iterations_update=5, verbose=False)
     assert mc.states.prop_mean is None
     assert np.isfinite(mc.states.field.numpy()).all()
-
-
-def test_matern_not_ported():
-    locs, y, _ = _problem("exponential_isotropic", n=50)
-    with pytest.raises(NotImplementedError, match="M8"):
-        nngp_tpu_torch.initialize(locs, y, m=4,
-                                  stationary_covfun="matern_isotropic",
-                                  verbose=False)
