@@ -15,8 +15,13 @@ with a nonzero exit and no "ok" line:
                   synthetic lon/lat sites, 14 location covariates,
                   exponential_sphere, m = 5, 3 chains, seed 1
   5. kernel       the sweep kernel against its plain PyTorch version on
-                  that graph (3 chains, 10 sweeps), zero and injected
-                  noise, tolerance 2e-3 * max(1, |w|_inf); median times
+                  that graph at 3 and 96 chains (the states tiled), 10
+                  sweeps, zero and injected noise, tolerance 2e-3 *
+                  max(1, |w|_inf), repeat calls bit for bit; median times
+                  of the kernel, of the Q layout gather that feeds it, of
+                  its grid barriers alone and (3 chains) of the plain
+                  version, beside the byte bound
+                  (nngp_tpu_torch/experiments/sweep_bench.py)
   6. gather probes the four kernels of the gather microbenchmarks
                   (nngp_tpu_torch/experiments: X1 gather_bench, X2
                   gather_probe, X3 gather_probe2) at the scripts' full
@@ -26,7 +31,10 @@ with a nonzero exit and no "ok" line:
                   within 1e-5 * max(1, |C|_inf) at the probe's shape and at
                   shapes that cross every tile edge, its repeat calls bit
                   for bit; the matmul and cuBLAS FP32 timed at 2048 x 512 x
-                  2048; then the three entry points, with each kernel's
+                  2048; each kernel's byte or operation bound and the time
+                  of the PyTorch calls computing its function
+                  (torch.gather/roll per stage, Tensor.scatter_, cuBLAS
+                  FP32); then the three entry points, with each kernel's
                   launch count from that run
   7. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
                   estimate, with the kernel's launch count from that run
@@ -45,7 +53,8 @@ with a nonzero exit and no "ok" line:
                   then run 25 iterations and estimate the smoothness
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
-counts the sweep kernel's launches from zero and needs one per iteration.
+counts the sweep kernel's launches from zero and needs exactly one per
+iteration.
 
 The line before last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
@@ -58,6 +67,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 TOL_REL = 2e-3      # kernel against plain: 2e-3 * max(1, |w|_inf)
+SWEEP_CHAINS = (3, 96)   # the sweep kernel's checks and times (states tiled)
 PARITY_TOL = 1e-3   # card against CPU after 3 iterations, same scaling
 # X1 kernel against plain: float32 neighbour sums in another order and
 # rsqrtf, through 600 dependent steps of a linear map whose field grows to
@@ -132,50 +142,50 @@ def small_parity(dev, family="exponential_sphere"):
 
 
 def kernel_vs_plain(mc):
-    """The sweep kernel against its plain version at the main path's shapes."""
+    """The sweep kernel against its plain version at the main path's shapes,
+    3 and 96 chains (the 3 initial states tiled), zero and injected noise,
+    repeat calls bit for bit; then median times (sweep_bench.time_case)."""
     import torch
 
-    from nngp_tpu_torch.models import gaussian as G
+    from nngp_tpu_torch.experiments import sweep_bench
     from nngp_tpu_torch.ops import sweep
-    from nngp_tpu_torch.experiments.timing import median_ms
-    from nngp_tpu_torch.ops.covariance import shape_transform
-    from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
-    g, st = mc.graph, mc.states
-    names = mc.space_time_model["covfun"]["shape_params"]
-    linv = vecchia_linv(g, shape_transform(names, st.shape))
-    mu = G._mu_obs(mc.data, st, g)
-    q, P, rs, scal = G.sweep_inputs(g, mc.data, st, linv, mu)
-    C, n, S = st.field.shape[0], g.n, 10
-    w0 = torch.cat([st.field, st.field.new_zeros(C, 1)], 1)
-    tables = (g.color_ptr, g.color_sites, g.nbr_sites, g.nbr_edge)
-    gen = torch.Generator(device=w0.device).manual_seed(0)
     out = {"max_abs_err": 0.0}
-    for label, noise in (("zero noise", torch.zeros(C, S, n, device=w0.device)),
-                         ("injected noise", torch.randn(C, S, n, generator=gen,
-                                                        device=w0.device))):
-        got = sweep.chromatic_sweeps_cuda(w0.clone(), q, P, rs, noise, scal,
-                                          *tables)
-        want = sweep.chromatic_sweeps_reference(w0.clone(), q, P, rs, noise,
-                                                scal, *tables)
-        torch.cuda.synchronize()
-        diff = (got - want)[:, :n].abs()
-        mx, rms = diff.max().item(), diff.pow(2).mean().sqrt().item()
-        tol = TOL_REL * max(1.0, want[:, :n].abs().max().item())
-        ok = bool(torch.isfinite(got).all()) and mx <= tol
-        print(f"  {label}: max abs diff {mx:.3e}, rms {rms:.3e}, "
-              f"tol {tol:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            raise RuntimeError(f"kernel disagrees with plain version ({label})")
-        out["max_abs_err"] = max(out["max_abs_err"], mx)
-    w = w0.clone()
-    out["ms"] = median_ms(lambda: sweep.chromatic_sweeps_cuda(
-        w, q, P, rs, noise, scal, *tables), reps=21,
-        setup=lambda: w.copy_(w0))
-    out["plain_ms"] = median_ms(lambda: sweep.chromatic_sweeps_reference(
-        w, q, P, rs, noise, scal, *tables), reps=5,
-        setup=lambda: w.copy_(w0))
-    out["shape"] = f"C={C} S={S} n={n} colors={g.n_colors} D={g.nbr_sites.shape[1]}"
+    for C in SWEEP_CHAINS:
+        for zero in (True, False):
+            case = sweep_bench.sweep_case(mc, C, zero_noise=zero)
+            got = case["call"](case["w0"].clone())
+            again = case["call"](case["w0"].clone())
+            want = case["plain"](case["w0"].clone())
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            mx, rms = diff.max().item(), diff.pow(2).mean().sqrt().item()
+            tol = TOL_REL * max(1.0, want.abs().max().item())
+            same = torch.equal(got, again)
+            ok = bool(torch.isfinite(got).all()) and mx <= tol and same
+            print(f"  {C} chains, {'zero' if zero else 'injected'} noise: max "
+                  f"abs diff {mx:.3e}, rms {rms:.3e}, tol {tol:.3e}, repeat "
+                  f"call {'bit-identical' if same else 'DIFFERS'} -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                raise RuntimeError(f"sweep kernel disagrees with its plain "
+                                   f"version ({C} chains)")
+            out["max_abs_err"] = max(out["max_abs_err"], mx)
+        t = sweep_bench.time_case(case, plain=(C == 3))
+        out[C] = t
+        print(f"  {C} chains: kernel {t['ms']:.4f} ms, q_plan gather "
+              f"{t['layout_ms']:.4f} ms, grid barriers alone "
+              f"{t['barriers_ms']:.4f} ms"
+              + (f", plain {t['plain_ms']:.3f} ms" if "plain_ms" in t else "")
+              + f"; byte bound {1e3 * t['bound_ms']:.2f} us, "
+              f"{100 * t['share']:.2f} % of it", flush=True)
+        del case
+    g = mc.graph
+    lane_tab = sweep.lanes(g.color_ptr, g.plan_sites, g.plan_ptr)[1]
+    out["shape"] = (f"S={sweep_bench.SWEEPS} n={g.n} colours={g.n_colors} "
+                    f"2E={g.plan_nbr.shape[0]} lane slots="
+                    f"{lane_tab.shape[1]}, grid of {sweep.grid_threads()} "
+                    "threads")
     return out
 
 
@@ -261,6 +271,7 @@ def gather_probes(dev):
                                  f"{p.name}", p.op(*p.args), want, tol))
     matmul_checks(dev)
     torch.cuda.synchronize()
+    yardsticks = probe_yardsticks(dev)
 
     ops = (gather_ops.gather_sweeps, gather_ops.staged_gather,
            gather_ops.column_scatter, gather_ops.matmul_f32)
@@ -280,6 +291,92 @@ def gather_probes(dev):
         rows = [r for r in probes if r["op"] == name]
         out[name].update(ms=sum(r["ms"] for r in rows),
                          plain_ms=sum(r["plain_ms"] for r in rows))
+    for name, y in yardsticks.items():
+        out[name].update(y)
+    return out
+
+
+def _bound(nbytes, flops=0.0):
+    """(ms, "bytes" or "operations"): the larger of the bytes over an H100
+    SXM's memory rate and the float32 operations over its float32 rate."""
+    from nngp_tpu_torch.experiments.sweep_bench import (F32_FLOPS_PER_S,
+                                                        HBM_BYTES_PER_S)
+
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+
+
+def _nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def _library_call(p):
+    """One PyTorch call computing probe ``p``'s function (a chain of one
+    call per stage for the staged gathers), its indices cast beforehand."""
+    import torch
+
+    from nngp_tpu_torch.experiments import gather_ops
+
+    if p.op is gather_ops.matmul_f32:
+        a, b = p.args
+        return lambda: a @ b                                 # cuBLAS FP32
+    if p.op is gather_ops.column_scatter:
+        val, idx, n_rows = p.args
+        src, col = val[:, :1].contiguous(), idx[:, :1].long()
+        return lambda: torch.zeros(n_rows, val.shape[1], device=val.device
+                                   ).scatter_(0, col, src)
+    src, stages = p.args
+    steps = [(st[0], st[1].long() if st[0] in ("rows", "cols") else st[1:])
+             for st in stages]
+
+    def chain():
+        x = src
+        for kind, arg in steps:
+            if kind in ("rows", "cols"):
+                x = torch.gather(x, int(kind == "cols"), arg)
+            elif kind == "roll":
+                x = torch.roll(x, arg[0], 0)
+            else:
+                x = x.t().contiguous()
+        return x
+    return chain
+
+
+def probe_yardsticks(dev):
+    """Per gather-probe kernel, summed over its bodies at the scripts'
+    shapes: the least time of its bytes and operations (``bound_ms``,
+    ``bound_by``) and the time of the PyTorch calls computing the same
+    function (``library_ms``; none for X1's colour-ordered sweep)."""
+    from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
+                                            gather_probe, gather_probe2,
+                                            timing)
+
+    t = gather_bench.inputs(dev)
+    args = gather_bench.sweep_args(t)
+    S, NB, B = t["noise"].shape
+    ms, by = _bound(_nbytes(t["w0"], *args) + _nbytes(t["w0"]),
+                    S * NB * B * (2 * gather_ops._W + 4))
+    out = {"gather_sweeps": {"bound_ms": ms, "bound_by": by,
+                             "library_ms": None}}
+    for mod, arrays in ((gather_probe, data.probe_arrays()),
+                        (gather_probe2, data.probe2_arrays())):
+        for p in mod.probes(data.to_device(arrays, dev)):
+            name = p.op.__name__
+            res = p.plain(*p.args)
+            tensors = [a for a in p.args if hasattr(a, "numel")]
+            if p.op is gather_ops.staged_gather:
+                tensors += [st[1] for st in p.args[1]
+                            if st[0] in ("rows", "cols")]
+            flops = 0.0
+            if p.op is gather_ops.matmul_f32:
+                (M, K), N = p.args[0].shape, p.args[1].shape[1]
+                flops = 2.0 * M * N * K
+            ms, by = _bound(_nbytes(res, *tensors), flops)
+            lib, _ = timing.per_call_ms(_library_call(p))
+            o = out.setdefault(name, {"bound_ms": 0.0, "bound_by": by,
+                                      "library_ms": 0.0})
+            o["bound_ms"] += ms
+            o["library_ms"] += lib
     return out
 
 
@@ -299,7 +396,7 @@ def run_counted(mc, n_iterations, **kw):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = sweep.chromatic_sweeps.launches
-    if launches < n_iterations:
+    if launches != n_iterations:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
     if mc.iterations != start + n_iterations:
@@ -488,8 +585,9 @@ def main():
 
     t = time.perf_counter()
     kv = kernel_vs_plain(mc)
-    phase("kernel", f"{kv['shape']}: kernel {kv['ms']:.3f} ms, plain "
-          f"{kv['plain_ms']:.3f} ms (median)", t)
+    phase("kernel", f"{kv['shape']}: kernel {kv[3]['ms']:.4f} ms at 3 "
+          f"chains, {kv[96]['ms']:.3f} ms at 96; plain {kv[3]['plain_ms']:.3f}"
+          " ms at 3 (medians)", t)
 
     t = time.perf_counter()
     gp = gather_probes(dev)
@@ -586,7 +684,9 @@ def main():
         "source": "nngp_tpu_torch/csrc/chromatic_sweep.cu",
         "replaces": "nngp_tpu/ops/pallas_sweep.py:159",
         "launches": launches, "max_abs_err": kv["max_abs_err"],
-        "ms": kv["ms"], "plain_ms": kv["plain_ms"]}] + [
+        "ms": kv[3]["ms"], "plain_ms": kv[3]["plain_ms"],
+        "bound_ms": kv[3]["bound_ms"], "bound_by": kv[3]["bound_by"],
+        "library_ms": None}] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))
     print(smi)

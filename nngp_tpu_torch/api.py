@@ -5,7 +5,9 @@ mcmc_nngp_run, mcmc_nngp_estimate, mcmc_nngp_predict_* and saveRDS/readRDS
 of the fit, Heavy_metals/run_script.R:17).  ``initialize`` runs the host
 preprocessing once (the same NumPy code as ``nngp_tpu``, so the same
 graph and initial states for the same inputs and seed) and puts every
-tensor on the ``device`` it is given; ``run`` advances all chains together
+tensor on the ``device`` it is given: the CUDA card by default, the CPU
+only when asked (``device="cpu"``; asking for a card that is not there
+raises).  ``run`` advances all chains together
 and can be called again on the same ``MCMC`` object to continue sampling.
 ``save`` writes ``nngp_tpu.save``'s file and ``load`` reads either
 package's, so a fit saved by one package resumes in the other.
@@ -128,11 +130,13 @@ def initialize(
     response_model: str = "Gaussian",
     n_chains: int = 3,
     seed: int = 1,
-    device="cpu",
+    device="cuda",
     adaptive_proposal: bool = True,
     verbose: bool = True,
 ) -> MCMC:
-    """Build the model state (mcmc_nngp_initialize.R:1-240) on ``device``.
+    """Build the model state (mcmc_nngp_initialize.R:1-240) on ``device``:
+    the CUDA card unless ``device="cpu"``; without a card, asking for it
+    raises (there is no fallback to the CPU).
 
     Reordering, dedupe, neighbour search and colouring run on the host once,
     with the same NumPy code and random stream as ``nngp_tpu.initialize``.
@@ -141,7 +145,7 @@ def initialize(
     (nngp_tpu's states with ``prop_mean=None``).
     """
     t_begin = time.time()
-    device = torch.device(device)
+    device = interop.resolve_device(device)
     _full_f32_matmuls()
     if response_model != "Gaussian":
         raise ValueError("only the Gaussian response model is implemented "
@@ -532,10 +536,11 @@ def save(mc: MCMC, path: str) -> None:
     interop.dump_fit(host, path)
 
 
-def load(path: str, device="cpu") -> MCMC:
+def load(path: str, device="cuda") -> MCMC:
     """Rebuild a fit saved by :func:`save` or by ``nngp_tpu.save`` (readRDS
-    analog) on ``device``; ``run`` resumes it where it stopped."""
-    device = torch.device(device)
+    analog) on ``device``; ``run`` resumes it where it stopped.  Without a
+    CUDA card, pass ``device="cpu"``: asking for the card raises."""
+    device = interop.resolve_device(device)
     _full_f32_matmuls()
     host = interop.load_fit(path)
     covfun = host["space_time_model"]["covfun"]["stationary_covfun"]

@@ -4,9 +4,10 @@ this package, without importing jax.
 ``from_numpy`` reads ``nngp_tpu``'s host objects (a ``VecchiaGraph``,
 ``ModelData`` and stacked ``ChainState`` with NumPy leaves, as
 ``nngp_tpu.initialize`` leaves them) by attribute and returns this
-package's tensors on ``device``.  ``states_to_numpy`` goes back: a dict of
-stacked NumPy arrays keyed like ``ChainState``'s fields, so ``nngp_tpu``'s
-``ChainState(**d)`` rebuilds it.
+package's tensors on ``device`` (the card unless ``device="cpu"``).
+``states_to_numpy`` goes back: a dict of stacked NumPy arrays keyed like
+``ChainState``'s fields, so ``nngp_tpu``'s ``ChainState(**d)`` rebuilds
+it.
 
 ``dump_fit`` / ``load_fit`` read and write the pickle of ``nngp_tpu.save``,
 key for key.  That pickle names two classes, ``nngp_tpu.models.gaussian.
@@ -27,9 +28,9 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.models.gaussian import ChainState, ModelData
-from nngp_tpu_torch.preprocess.coloring import color_csr
+from nngp_tpu_torch.preprocess.coloring import color_csr, sweep_plan
 from nngp_tpu_torch.preprocess.design import Design
-from nngp_tpu_torch.preprocess.graph import VecchiaGraph
+from nngp_tpu_torch.preprocess.graph import PLAN_FIELDS, VecchiaGraph
 
 
 def _colors_from_padded(colors_idx: np.ndarray, n: int) -> np.ndarray:
@@ -43,6 +44,7 @@ def graph_from_numpy(graph) -> VecchiaGraph:
     """This package's host graph from ``nngp_tpu``'s (NumPy leaves)."""
     n = np.asarray(graph.NNarray).shape[0]
     color_ptr, color_sites = color_csr(_colors_from_padded(graph.colors_idx, n))
+    plan = sweep_plan(color_ptr, color_sites, graph.nbr_sites, graph.nbr_edge)
     return VecchiaGraph(
         kernel_coords=np.asarray(graph.kernel_coords),
         nn_dist2=np.asarray(graph.nn_dist2),
@@ -56,6 +58,7 @@ def graph_from_numpy(graph) -> VecchiaGraph:
         nbr_mask=np.asarray(graph.nbr_mask),
         color_ptr=color_ptr,
         color_sites=color_sites,
+        **dict(zip(PLAN_FIELDS, plan)),
         level_segs=tuple(np.asarray(t) for t in graph.level_segs),
         locs_match=np.asarray(graph.locs_match),
         hctam_scol_1=np.asarray(graph.hctam_scol_1),
@@ -76,18 +79,31 @@ def _tensors(obj, cls, device):
     return cls(**out)
 
 
-def from_numpy(graph, data, states, device="cpu"):
+def resolve_device(device) -> torch.device:
+    """``device`` as a ``torch.device``.  A CUDA device with no card
+    available raises: the entry points never fall back to the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r} needs a CUDA card and none is available "
+            "(torch.cuda.is_available() is False); pass device=\"cpu\" to "
+            "run on the CPU")
+    return device
+
+
+def from_numpy(graph, data, states, device="cuda"):
     """(VecchiaGraph, ModelData, ChainState) on ``device`` from
     ``nngp_tpu``'s host graph, model data and stacked chain states."""
+    device = resolve_device(device)
     return (graph_from_numpy(graph).to(device),
             _tensors(data, ModelData, device),
             chain_state(states, device))
 
 
-def chain_state(states, device="cpu") -> ChainState:
+def chain_state(states, device="cuda") -> ChainState:
     """This package's ``ChainState`` (float32 tensors on ``device``) from
     stacked chain states with NumPy leaves, read by attribute."""
-    return _tensors(states, ChainState, device)
+    return _tensors(states, ChainState, resolve_device(device))
 
 
 def states_to_numpy(states: ChainState) -> dict:

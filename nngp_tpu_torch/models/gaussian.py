@@ -378,18 +378,20 @@ def _beta_step(graph, data, cfg, state, linv, draws: IterationDraws):
 
 
 def sweep_inputs(graph, data, state, linv, mu):
-    """Iteration constants of the chromatic sweeps: (q_edges [C, E+1] with
-    slot E = 0, posterior precision P [C, n], residual sums rs [C, n],
-    scal [C, 3] = (beta_0, e^-log_scale, e^-log_noise_variance))."""
+    """Iteration constants of the chromatic sweeps: (q_edges [C, E+1], the
+    same values in the sweep plan's order q_plan = q_edges[:, plan_edge]
+    [C, 2E] (one gather an iteration: Q is fixed across the sweeps),
+    posterior precision P [C, n], residual sums rs [C, n], scal [C, 3] =
+    (beta_0, e^-log_scale, e^-log_noise_variance))."""
     pdiag, q_edges = precision_diag_and_q_edges(linv, graph)
-    q_edges[:, graph.n_edges] = 0.0
+    q_plan = q_edges.index_select(1, graph.plan_edge)
     # residual scatter-sum (ref :260), independent of the field
     rs = torch.zeros_like(pdiag).index_add_(1, graph.locs_match, data.y - mu)
     inv_scale = torch.exp(-state.log_scale)
     inv_noise = torch.exp(-state.log_noise_variance)
     P = inv_scale[:, None] * pdiag + inv_noise[:, None] * graph.obs_per_loc
     scal = torch.stack([state.beta_0, inv_scale, inv_noise], dim=1)
-    return q_edges, P, rs, scal
+    return q_edges, q_plan, P, rs, scal
 
 
 def _chromatic_sweeps(graph, data, state, linv, mu, noise):
@@ -397,13 +399,12 @@ def _chromatic_sweeps(graph, data, state, linv, mu, noise):
     noise[:, s] (ref :254-275), all in one call of ops/sweep.py.  Per colour, each site
     s draws from N(beta_0 - P_s^-1 (e^-ls sum_{j~s} Q_sj (w_j - beta_0)
     - e^-lnv rs_s), P_s^-1)."""
-    C, n = state.field.shape
-    q_edges, P, rs, scal = sweep_inputs(graph, data, state, linv, mu)
-    w = torch.cat([state.field, state.field.new_zeros(C, 1)], dim=1)
-    chromatic_sweeps(w, q_edges, P, rs, noise.contiguous(), scal,
-                     graph.color_ptr, graph.color_sites, graph.nbr_sites,
-                     graph.nbr_edge)
-    return replace(state, field=w[:, :n])
+    _, q_plan, P, rs, scal = sweep_inputs(graph, data, state, linv, mu)
+    w = state.field.clone(memory_format=torch.contiguous_format)
+    chromatic_sweeps(w, q_plan, P, rs, noise.contiguous(), scal,
+                     graph.color_ptr, graph.plan_sites, graph.plan_ptr,
+                     graph.plan_nbr)
+    return replace(state, field=w)
 
 
 def _noise_steps(graph, data, cfg, state, mu, z, u):

@@ -15,8 +15,10 @@ Everything here is host-side NumPy producing static index arrays:
   assemble the nonzeros of Q = L'L on device in one scatter-add;
 - per-site padded neighbor lists (sites + edge ids) for the chromatic
   conditional-mean gather;
-- the colour-major site list (CSR) walked by the chromatic sweep kernel, and
-  the per-level site tables walked by the triangular solve.
+- the colour-major site list (CSR), the sweep plan built from it (sites
+  sorted by degree within each colour, their neighbours as a CSR) that the
+  chromatic sweep kernel walks, and the per-level site tables walked by
+  the triangular solve.
 """
 
 from __future__ import annotations
@@ -146,6 +148,34 @@ def color_csr(colors: np.ndarray):
     color_ptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
     color_sites = np.argsort(colors, kind="stable").astype(np.int32)
     return color_ptr, color_sites
+
+
+def sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge):
+    """The order the chromatic sweep kernel walks, as a neighbour CSR.
+
+    Returns (plan_sites i32 [n], plan_ptr i32 [n+1], plan_nbr i32 [2E],
+    plan_edge i32 [2E]).  ``plan_sites`` is colour-major (``color_ptr``
+    indexes it as it indexes ``color_sites``) and, within a colour, sorted
+    by degree, highest first, ties in site order.  Plan position t holds
+    the neighbours ``plan_nbr[plan_ptr[t]:plan_ptr[t+1]]`` of site
+    ``plan_sites[t]`` and their edge ids ``plan_edge[...]``: the non-pad
+    entries of its rows of ``nbr_sites``/``nbr_edge``, in row order."""
+    color_ptr = np.asarray(color_ptr, dtype=np.int64)
+    color_sites = np.asarray(color_sites, dtype=np.int64)
+    nbr_sites = np.asarray(nbr_sites)
+    nbr_edge = np.asarray(nbr_edge)
+    n = nbr_sites.shape[0]
+    deg = (nbr_sites < n).sum(axis=1)
+    colour = np.repeat(np.arange(len(color_ptr) - 1), np.diff(color_ptr))
+    # np.lexsort sorts by its last key first
+    order = np.lexsort((color_sites, -deg[color_sites], colour))
+    plan_sites = color_sites[order]
+    plan_ptr = np.concatenate([[0], np.cumsum(deg[plan_sites])])
+    rows = nbr_sites[plan_sites]
+    real = rows < n
+    return (plan_sites.astype(np.int32), plan_ptr.astype(np.int32),
+            rows[real].astype(np.int32),
+            nbr_edge[plan_sites][real].astype(np.int32))
 
 
 def dag_levels(NNarray: np.ndarray) -> np.ndarray:

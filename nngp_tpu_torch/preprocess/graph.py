@@ -3,12 +3,12 @@
 Copy of ``nngp_tpu/preprocess/graph.py`` (same arrays, bit for bit) without
 the pytree registration and without the TPU's padded block schedules
 (``chrom_blocks``, the degree-classed ``chrom_*`` tables, ``levels_idx``).
-It adds the colour-major CSR (``color_ptr``, ``color_sites``) that the
-chromatic sweep kernel walks.  ``build_graph`` returns NumPy leaves;
-``VecchiaGraph.to(device)`` gives the same dataclass with torch leaves:
-int64 for every index tensor that torch indexes with, int32 for the tables
-the CUDA kernel reads (``nbr_sites``, ``nbr_edge``, ``color_ptr``,
-``color_sites``), float32 values.
+It adds the colour-major CSR (``color_ptr``, ``color_sites``) and the
+sweep plan the chromatic sweep kernel walks (``plan_*``,
+``preprocess/coloring.py:sweep_plan``).  ``build_graph`` returns NumPy
+leaves; ``VecchiaGraph.to(device)`` gives the same dataclass with torch
+leaves: int32 for the colour and plan tables and the padded neighbour
+lists, int64 for every other index tensor, float32 values.
 """
 
 from __future__ import annotations
@@ -27,14 +27,18 @@ from nngp_tpu_torch.preprocess.coloring import (
     level_segments,
     moralized_edges,
     site_neighbor_lists,
+    sweep_plan,
 )
 from nngp_tpu_torch.preprocess.dedupe import ObsMaps
 from nngp_tpu_torch.preprocess.neighbors import find_ordered_nn
 from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
 
-# index tables the CUDA sweep kernel reads as int32; every other integer
-# leaf becomes int64 on the device
-_KERNEL_I32 = ("nbr_sites", "nbr_edge", "color_ptr", "color_sites")
+# index tables kept int32 on the device (the sweep kernel reads the plan);
+# every other integer leaf becomes int64
+_KERNEL_I32 = ("nbr_sites", "nbr_edge", "color_ptr", "color_sites",
+               "plan_sites", "plan_ptr", "plan_nbr", "plan_edge")
+# the fields of coloring.sweep_plan's result
+PLAN_FIELDS = ("plan_sites", "plan_ptr", "plan_nbr", "plan_edge")
 
 
 @dataclass(frozen=True)
@@ -59,6 +63,12 @@ class VecchiaGraph:
     # color_sites[color_ptr[c]:color_ptr[c+1]]
     color_ptr: object             # i32 [n_colors+1]
     color_sites: object           # i32 [n]
+    # sweep plan (coloring.sweep_plan): colour-major, degree-sorted sites
+    # (color_ptr indexes them too) and their neighbours as a CSR
+    plan_sites: object            # i32 [n]
+    plan_ptr: object              # i32 [n+1]
+    plan_nbr: object              # i32 [2E]
+    plan_edge: object             # i32 [2E]
     # triangular-solve schedule: tuple of [k_s, W_s] tables in topological
     # order, pad = n (preprocess.coloring.level_segments)
     level_segs: tuple
@@ -172,6 +182,7 @@ def build_graph(
     nbr_sites, nbr_edge, nbr_mask = site_neighbor_lists(n, edges)
     colors = greedy_coloring(NN)
     color_ptr, color_sites = color_csr(colors)
+    plan = sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge)
     levels = dag_levels(NN)
     level_segs = level_segments(levels, n_sentinel=n)
     timings["coloring_s"] = time.perf_counter() - t
@@ -192,6 +203,7 @@ def build_graph(
         nbr_mask=nbr_mask.astype(dtype),
         color_ptr=color_ptr,
         color_sites=color_sites,
+        **dict(zip(PLAN_FIELDS, plan)),
         level_segs=level_segs,
         locs_match=obs_maps.locs_match,
         hctam_scol_1=obs_maps.hctam_scol_1,

@@ -38,54 +38,159 @@ def _mc(device):
         n_chains=C, seed=4, device=device, verbose=False)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("zero_noise", [True, False])
-def test_kernel_matches_plain(zero_noise):
-    """Kernel against plain version on the same inputs; tolerance
-    2e-3 * max(1, |w|_inf) (float32 neighbour sums in another order)."""
-    dev = _card()
-    mc = _mc(dev)
-    g, st = mc.graph, mc.states
+def _sweep_inputs(mc, C_run, S=6, zero_noise=False):
+    """The kernel's arguments on ``mc``'s graph with its states tiled to
+    ``C_run`` chains: (w0, args after w)."""
+    from nngp_tpu_torch.experiments.sweep_bench import tile_states
+
+    g = mc.graph
+    st = tile_states(mc.states, C_run)
     names = mc.space_time_model["covfun"]["shape_params"]
     linv = vecchia_linv(g, shape_transform(names, st.shape))
-    q, P, rs, scal = G.sweep_inputs(g, mc.data, st, linv,
-                                    G._mu_obs(mc.data, st, g))
-    w0 = torch.cat([st.field, st.field.new_zeros(C, 1)], 1)
-    noise = torch.randn(C, 6, g.n, device=dev,
+    _, q_plan, P, rs, scal = G.sweep_inputs(g, mc.data, st, linv,
+                                            G._mu_obs(mc.data, st, g))
+    dev = st.field.device
+    noise = torch.randn(C_run, S, g.n, device=dev,
                         generator=torch.Generator(dev).manual_seed(1))
     if zero_noise:
         noise.zero_()
-    tables = (g.color_ptr, g.color_sites, g.nbr_sites, g.nbr_edge)
-    before = sweep.chromatic_sweeps.launches
-    got = sweep.chromatic_sweeps(w0.clone(), q, P, rs, noise, scal, *tables)
-    want = sweep.chromatic_sweeps_reference(w0.clone(), q, P, rs, noise, scal,
-                                            *tables)
-    torch.cuda.synchronize()
-    assert sweep.chromatic_sweeps.launches == before + 1
+    return st.field.clone(), (q_plan, P, rs, noise, scal, g.color_ptr,
+                              g.plan_sites, g.plan_ptr, g.plan_nbr)
+
+
+def _held(got, want):
+    """Kernel against plain version: 2e-3 * max(1, |w|_inf) (float32
+    neighbour sums in another order)."""
     assert torch.isfinite(got).all()
     tol = 2e-3 * max(1.0, want.abs().max().item())
     assert (got - want).abs().max().item() <= tol
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 24])
+@pytest.mark.parametrize("zero_noise", [True, False])
+def test_kernel_matches_plain(zero_noise, chains):
+    """Kernel against plain version on the same inputs, one launch a call."""
+    dev = _card()
+    w0, args = _sweep_inputs(_mc(dev), chains, zero_noise=zero_noise)
+    before = sweep.chromatic_sweeps.launches
+    got = sweep.chromatic_sweeps(w0.clone(), *args)
+    want = sweep.chromatic_sweeps_reference(w0.clone(), *args)
+    torch.cuda.synchronize()
+    assert sweep.chromatic_sweeps.launches == before + 1
+    _held(got, want)
+
+
+def _hub_problem(dev, C_run=3, S=4, leaves=40):
+    """A graph with a site of degree ``leaves`` in a colour of its own
+    (fewer sites than one lane group), beside a path of 30 sites."""
+    from nngp_tpu_torch.preprocess.coloring import (color_csr,
+                                                    site_neighbor_lists,
+                                                    sweep_plan)
+
+    n = hub = 30 + leaves
+    n += 1
+    edges = [(i, i + 1) for i in range(29)]            # path 0..29
+    edges += [(j, hub) for j in range(30, hub)]        # the hub's leaves
+    edges = np.array(edges, dtype=np.int32)
+    nbr_sites, nbr_edge, _ = site_neighbor_lists(n, edges)
+    colors = np.zeros(n, dtype=np.int64)
+    colors[1:30:2] = 1
+    colors[hub] = 2
+    color_ptr, color_sites = color_csr(colors)
+    plan = sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge)
+    rng = np.random.default_rng(2)
+    q_edges = -rng.uniform(0.05, 0.2, size=(C_run, len(edges)))
+
+    def t(a, dtype=np.float32):
+        return torch.tensor(np.ascontiguousarray(a, dtype), device=dev)
+
+    tables = (color_ptr, *plan[:3])
+    args = (t(q_edges[:, plan[3]]), t(rng.uniform(2, 4, (C_run, n))),
+            t(rng.normal(size=(C_run, n))),
+            t(rng.normal(size=(C_run, S, n))),
+            t(np.stack([rng.normal(size=C_run), rng.uniform(.5, 2, C_run),
+                        rng.uniform(.5, 2, C_run)], 1)),
+            *(t(a, np.int32) for a in tables))
+    assert int(np.diff(plan[1]).max()) == leaves
+    return t(rng.normal(size=(C_run, n))), args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("leaves", [40, 250])
+def test_kernel_high_degree_and_small_colour(leaves):
+    """A site of degree 40 (more than one lane group of 8 holds) or 250
+    (more than 32 lanes hold in one round), in a colour of one site,
+    against the plain version."""
+    dev = _card()
+    w0, args = _hub_problem(dev, leaves=leaves)
+    got = sweep.chromatic_sweeps_cuda(w0.clone(), *args)
+    want = sweep.chromatic_sweeps_reference(w0.clone(), *args)
+    torch.cuda.synchronize()
+    _held(got, want)
+
+
+@pytest.mark.gpu
+def test_kernel_repeat_calls_bit_identical():
+    """No atomics in the sums: two calls on the same inputs give the same
+    bits."""
+    dev = _card()
+    w0, args = _sweep_inputs(_mc(dev), 3)
+    first = sweep.chromatic_sweeps(w0.clone(), *args)
+    second = sweep.chromatic_sweeps(w0.clone(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.gpu
+def test_kernel_lane_table_is_the_plans():
+    """The kernel walks ``lane_table`` of the graph's plan at the kernel's
+    own entries a lane, built once per plan."""
+    dev = _card()
+    g = _mc(dev).graph
+    got = sweep.lanes(g.color_ptr, g.plan_sites, g.plan_ptr)
+    assert all(a is b for a, b in zip(
+        got, sweep.lanes(g.color_ptr, g.plan_sites, g.plan_ptr)))
+    want = sweep.lane_table(
+        g.color_ptr.cpu().numpy(), g.plan_sites.cpu().numpy(),
+        g.plan_ptr.cpu().numpy(),
+        sweep._library().chromatic_sweeps_lane_entries())
+    for a, b in zip(got, want):
+        assert a.device == dev and a.dtype == torch.int32
+        np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+@pytest.mark.gpu
 def test_kernel_rejects_bad_inputs():
     dev = _card()
-    w = torch.zeros(1, 4, device=dev)
-    ok = dict(q_edges=torch.zeros(1, 3, device=dev),
+    w = torch.zeros(1, 3, device=dev)
+    i32 = dict(dtype=torch.int32, device=dev)
+    # three sites on a path 0 - 1 - 2: colour 0 = {0, 2}, colour 1 = {1}
+    ok = dict(q_plan=torch.zeros(1, 4, device=dev),
               P=torch.ones(1, 3, device=dev), rs=torch.zeros(1, 3, device=dev),
               noise=torch.zeros(1, 1, 3, device=dev),
               scal=torch.zeros(1, 3, device=dev),
-              color_ptr=torch.tensor([0, 3], dtype=torch.int32, device=dev),
-              color_sites=torch.arange(3, dtype=torch.int32, device=dev),
-              nbr_sites=torch.full((3, 1), 3, dtype=torch.int32, device=dev),
-              nbr_edge=torch.full((3, 1), 2, dtype=torch.int32, device=dev))
+              color_ptr=torch.tensor([0, 2, 3], **i32),
+              plan_sites=torch.tensor([0, 2, 1], **i32),
+              plan_ptr=torch.tensor([0, 1, 2, 4], **i32),
+              plan_nbr=torch.tensor([1, 1, 0, 2], **i32))
     sweep.chromatic_sweeps(w, **ok)
+    torch.cuda.synchronize()
     with pytest.raises(TypeError):
-        sweep.chromatic_sweeps(w, **{**ok, "nbr_sites": ok["nbr_sites"].long()})
+        sweep.chromatic_sweeps(w, **{**ok, "plan_nbr": ok["plan_nbr"].long()})
     with pytest.raises(ValueError):
         sweep.chromatic_sweeps(w, **{**ok, "P": ok["P"].cpu()})
     with pytest.raises(ValueError):
         sweep.chromatic_sweeps(w, **{**ok, "rs": torch.zeros(1, 4, device=dev)})
+    with pytest.raises(ValueError):
+        sweep.chromatic_sweeps(w, **{**ok, "q_plan": torch.zeros(1, 3,
+                                                                 device=dev)})
+    with pytest.raises(ValueError):
+        sweep.chromatic_sweeps(w, **{**ok, "plan_ptr": ok["plan_ptr"][:3]})
+    with pytest.raises(TypeError):
+        sweep.chromatic_sweeps(w, **{**ok, "color_ptr": ok["color_ptr"].long()})
+    with pytest.raises(ValueError):
+        sweep.chromatic_sweeps(w, **{**ok, "plan_sites": ok["plan_sites"][:2]})
 
 
 @pytest.mark.gpu
@@ -136,7 +241,7 @@ def test_matern_vecchia_linv_card_matches_cpu():
     locs, y, X = synthetic_heavy_metals(n=500, p=2, seed=9)
     mc = nngp_tpu_torch.initialize(
         locs, y, X_locs=X, m=5, stationary_covfun="matern_sphere",
-        n_chains=C, seed=4, verbose=False)
+        n_chains=C, seed=4, device="cpu", verbose=False)
     d2 = mc.graph.nn_dist2[..., 0]
     rho = 2.5 * float(torch.sqrt(d2[d2 > 0]).median())
     nat = torch.tensor([[rho, 0.75]])

@@ -130,7 +130,7 @@ def _run_both(mc, its, iter_start, am_warm=False, states=None):
     if states is None:
         states = (_am_warm(mc, np.random.default_rng(0)) if am_warm
                   else mc.states)
-    g_t, data_t, state_t = from_numpy(g, mc.data, states)
+    g_t, data_t, state_t = from_numpy(g, mc.data, states, device="cpu")
     jstates = [jax.tree.map(lambda x: jnp.asarray(x)[c], states)
                for c in range(C)]
     jlinv = [jax_linv(g, jax_shape_transform(list(names), s.shape))
@@ -216,7 +216,7 @@ def test_matern_smoothness_bound_rejects_in_both():
     # the bound alone rejects s' = 6 + eps, in both packages
     cfg_t = tg.UpdateConfig(n_iterations=1, shape_names=names, locs_cols=())
     from nngp_tpu.models.gaussian import _range_support as jax_support
-    _, data_t, _ = from_numpy(mc.graph, mc.data, states)
+    _, data_t, _ = from_numpy(mc.graph, mc.data, states, device="cpu")
     for s in (6.0 + 1e-3, -6.0 - 1e-3, 5.99):
         sampled = np.array([[-1.0, s]], np.float32)
         natural = np.exp(sampled)
@@ -239,7 +239,8 @@ def test_run_records_match_jax_bookkeeping():
                   verbose=False, Gelman_Rubin_Brooks_stop=(0.0, 0.0))
     ref = nngp_tpu.run(nngp_tpu.initialize(locs, y, **kw),
                        chromatic_schedule="flat", **run_kw)
-    mc = nngp_tpu_torch.run(nngp_tpu_torch.initialize(locs, y, verbose=False,
+    mc = nngp_tpu_torch.run(nngp_tpu_torch.initialize(locs, y, device="cpu",
+                                                      verbose=False,
                                                       **kw), **run_kw)
     assert mc.iterations == ref.iterations == 25
     for f in STATE_FIELDS:

@@ -124,7 +124,8 @@ def test_correlation_from_sqdist_matches_jax(family):
 @pytest.mark.parametrize("family", ["matern_isotropic", "matern_sphere"])
 def test_matern_vecchia_linv_matches_jax(family):
     mc, _ = _graph(family)
-    g_t, _, states_t = from_numpy(mc.graph, mc.data, mc.states)
+    g_t, _, states_t = from_numpy(mc.graph, mc.data, mc.states,
+                                  device="cpu")
     assert g_t.d_floor == 1e-5
     names = mc.space_time_model["covfun"]["shape_params"]
 

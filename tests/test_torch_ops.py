@@ -42,7 +42,8 @@ def problem(request):
         locs = rng.uniform(size=(n, 2))
     mc = nngp_tpu.initialize(locs, rng.normal(size=n), m=5, n_chains=C,
                              seed=2, stationary_covfun=family)
-    g_t, data_t, states_t = from_numpy(mc.graph, mc.data, mc.states)
+    g_t, data_t, states_t = from_numpy(mc.graph, mc.data, mc.states,
+                                       device="cpu")
     # natural ranges around the data's own spacing
     natural = np.exp(np.asarray(mc.states.shape, dtype=np.float32))
     return mc, g_t, states_t, natural, rng

@@ -52,7 +52,7 @@ def _fit(family, seed=4, n=150, iters=20):
 def _port(ref, tmp_path):
     path = os.path.join(tmp_path, "fit.pkl")
     nngp_tpu.save(ref, path)
-    return nngp_tpu_torch.load(path)
+    return nngp_tpu_torch.load(path, device="cpu")
 
 
 @pytest.mark.parametrize("family", ["exponential_isotropic", "matern_sphere"])
@@ -175,7 +175,8 @@ def test_predict_field_refuses_column_records():
     rng = np.random.default_rng(3)
     locs = rng.uniform(size=(80, 2))
     mc = nngp_tpu_torch.initialize(locs, rng.normal(size=80), m=4,
-                                   n_chains=2, seed=1, verbose=False)
+                                   n_chains=2, seed=1, device="cpu",
+                                   verbose=False)
     mc = nngp_tpu_torch.run(mc, n_iterations_update=6,
                             field_record_columns=[2, 11], **RUN)
     with pytest.raises(ValueError, match="column-subsampled"):

@@ -36,7 +36,8 @@ def test_initialize_bit_identical(family):
     locs, y, X = _problem(family)
     kw = dict(X_locs=X, m=5, n_chains=2, seed=7, stationary_covfun=family)
     ref = nngp_tpu.initialize(locs, y, **kw)
-    mc = nngp_tpu_torch.initialize(locs, y, verbose=False, **kw)
+    mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
+                                   **kw)
     g, rg = mc.graph, ref.graph
     for name in ("NNarray", "nn_mask", "nn_dist2", "kernel_coords",
                  "pair_edge_id", "nbr_sites", "nbr_edge", "nbr_mask",
@@ -80,7 +81,8 @@ def test_initialize_bit_identical(family):
 def test_isotropic_proposal_switch():
     locs, y, _ = _problem("exponential_isotropic", n=120)
     mc = nngp_tpu_torch.initialize(locs, y, m=4, n_chains=2, seed=1,
-                                   adaptive_proposal=False, verbose=False)
+                                   adaptive_proposal=False, device="cpu",
+                                   verbose=False)
     assert mc.states.prop_mean is None and mc.states.prop_m2 is None
     mc = nngp_tpu_torch.run(mc, n_iterations_update=5, verbose=False)
     assert mc.states.prop_mean is None

@@ -77,13 +77,15 @@ def _colours(graph):
 
 def test_resume_bit_identical(tmp_path):
     locs, y, kw = _data()
-    whole = nngp_tpu_torch.initialize(locs, y, verbose=False, **kw)
+    whole = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
+                                      **kw)
     whole = nngp_tpu_torch.run(whole, n_cycles=2, **RUN)
-    half = nngp_tpu_torch.initialize(locs, y, verbose=False, **kw)
+    half = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
+                                     **kw)
     half = nngp_tpu_torch.run(half, n_cycles=1, **RUN)
     path = os.path.join(tmp_path, "fit.pkl")
     nngp_tpu_torch.save(half, path)
-    loaded = nngp_tpu_torch.load(path)
+    loaded = nngp_tpu_torch.load(path, device="cpu")
     _assert_same_fit(loaded, half)
     assert _colours(loaded.graph) == _colours(half.graph)
     resumed = nngp_tpu_torch.run(loaded, n_cycles=1, **RUN)
@@ -102,7 +104,7 @@ def test_jax_save_port_load(tmp_path):
     ref = nngp_tpu.run(nngp_tpu.initialize(locs, y, **kw), n_cycles=1, **RUN)
     path = os.path.join(tmp_path, "fit.pkl")
     nngp_tpu.save(ref, path)
-    mc = nngp_tpu_torch.load(path)
+    mc = nngp_tpu_torch.load(path, device="cpu")
     _assert_same_fit(mc, ref)
     assert _colours(mc.graph) == _colours(ref.graph)
     assert mc.design.names == ref.design.names
@@ -114,7 +116,7 @@ def test_jax_save_port_load(tmp_path):
 
 def test_port_save_jax_load(tmp_path):
     locs, y, kw = _data(seed=3)
-    mc = nngp_tpu_torch.initialize(locs, y, verbose=False,
+    mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
                                    **{**kw, "stationary_covfun":
                                       "matern_isotropic"})
     mc = nngp_tpu_torch.run(mc, n_cycles=1, **RUN)
@@ -141,7 +143,7 @@ def test_port_loads_jax_file_without_jax(tmp_path):
 import sys
 sys.modules["jax"] = None
 import nngp_tpu_torch
-mc = nngp_tpu_torch.load({path!r})
+mc = nngp_tpu_torch.load({path!r}, device="cpu")
 assert mc.iterations == 10, mc.iterations
 mc = nngp_tpu_torch.run(mc, n_iterations_update=5, verbose=False)
 assert mc.iterations == 15
@@ -159,15 +161,17 @@ print("loaded without jax")
 def test_field_record_columns_round_trip(tmp_path):
     locs, y, kw = _data(seed=5)
     cols = (3, 17, 41)
-    mc = nngp_tpu_torch.initialize(locs, y, verbose=False, **kw)
+    mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
+                                   **kw)
     mc = nngp_tpu_torch.run(mc, n_cycles=1, field_record_columns=cols, **RUN)
     path = os.path.join(tmp_path, "fit.pkl")
     nngp_tpu_torch.save(mc, path)
-    for loaded in (nngp_tpu_torch.load(path), nngp_tpu.load(path)):
+    for loaded in (nngp_tpu_torch.load(path, device="cpu"),
+                   nngp_tpu.load(path)):
         assert tuple(loaded.field_record_columns) == cols
         assert loaded.records[0]["field"].shape == (5, len(cols))
         np.testing.assert_array_equal(loaded.records[0]["field_columns"], cols)
-    back = nngp_tpu_torch.load(path)
+    back = nngp_tpu_torch.load(path, device="cpu")
     with pytest.raises(ValueError, match="column-subsampled"):
         nngp_tpu_torch.predict_field(back, locs[:3])
     with pytest.raises(ValueError, match="mid-chain"):
@@ -190,11 +194,12 @@ def test_save_name_and_log_jsonl(tmp_path, monkeypatch):
 
     monkeypatch.setattr(tapi, "save", counting_save)
     fit, log = (os.path.join(tmp_path, f) for f in ("fit.pkl", "log.jsonl"))
-    mc = nngp_tpu_torch.initialize(locs, y, verbose=False, **kw)
+    mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
+                                   **kw)
     mc = nngp_tpu_torch.run(mc, n_cycles=2, save_name=fit, log_jsonl=log,
                             **RUN)
     assert saves == [10, 20]
-    assert nngp_tpu_torch.load(fit).iterations == 20
+    assert nngp_tpu_torch.load(fit, device="cpu").iterations == 20
     lines = [json.loads(line) for line in open(log)]
     assert [e["cycle"] for e in lines] == [1, 2]
     assert [e["iteration"] for e in lines] == [10, 20]
@@ -211,7 +216,8 @@ def test_plot_trace_writes_pngs(tmp_path):
     pytest.importorskip("matplotlib")
     locs, y, kw = _data(seed=7)
     out = os.path.join(tmp_path, "plots")
-    mc = nngp_tpu_torch.initialize(locs, y, verbose=False, **kw)
+    mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
+                                   **kw)
     nngp_tpu_torch.run(mc, n_cycles=1, plot_trace=out, plot_beta=True, **RUN)
     for name in ("trace_covparms.png", "trace_beta.png"):
         with open(os.path.join(out, name), "rb") as f:
@@ -227,4 +233,4 @@ def test_interop_refuses_other_jax_classes(tmp_path):
     with open(path, "wb") as f:
         pickle.dump({"x": jax.numpy.zeros(2)}, f)
     with pytest.raises(pickle.UnpicklingError, match="without jax"):
-        nngp_tpu_torch.load(path)
+        nngp_tpu_torch.load(path, device="cpu")
