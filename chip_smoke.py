@@ -51,10 +51,22 @@ with a nonzero exit and no "ok" line:
                   build's proposal log-det difference at the Matérn probe's
                   (range, nu) against the float64 oracle (tolerance 1e-2),
                   then run 25 iterations and estimate the smoothness
+ 11. determinism  the main path twice from seed 1 (initialize -> run, 10
+                  iterations, 3 chains, full width): states and records bit
+                  for bit, the count of differing elements 0
+ 12. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+                  functions at full width with short fixed windows: the
+                  sweep kernel's parity preflight, the 96-chain leg (K = 3,
+                  lean records, 100 warmup + 100 timed iterations), the
+                  3-chain leg (100 + 200), the R-equivalent baseline (2
+                  iterations); its JSON line checked as
+                  tests/test_bench_smoke.py checks bench.py's, and ESS/s,
+                  ms/iteration and the baseline's it/s printed
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's launches from zero and needs exactly one per
-iteration.
+iteration; the bench phase needs one per iteration of its legs plus the
+preflight's one.
 
 The line before last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
@@ -515,6 +527,79 @@ def save_load(mc, dev):
     return back, save_s, load_s, size
 
 
+def determinism(dev, locs, y, X):
+    """initialize -> run twice from seed 1: the count of elements of the
+    states and records that differ between the two runs."""
+    import numpy as np
+    import torch
+
+    import nngp_tpu_torch
+
+    fits = []
+    for _ in range(2):
+        mc = nngp_tpu_torch.initialize(
+            locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+            n_chains=3, seed=1, device=dev, verbose=False)
+        fits.append(run_counted(mc, 10, field_thinning=0.5, verbose=False)[0])
+    a, b = fits
+    differ, total = 0, 0
+    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
+              "field", "tk_ancillary", "tk_sufficient", "prop_mean",
+              "prop_m2", "prop_count"):
+        x, z = getattr(a.states, f), getattr(b.states, f)
+        differ += int((x != z).sum())   # NaN != NaN counts too
+        total += x.numel()
+    for ra, rb in zip(a.records, b.records):
+        for k in ("beta_0", "beta", "log_scale", "log_noise_variance",
+                  "shape", "field", "saved_field"):
+            differ += int(np.sum(ra[k] != rb[k]))
+            total += ra[k].size
+    torch.cuda.synchronize()
+    return differ, total
+
+
+def bench_legs(dev):
+    """The bench's legs, preflight and baseline at full width with short
+    fixed windows; (its JSON line, the sweep kernel's launches)."""
+    from nngp_tpu_torch import bench
+    from nngp_tpu_torch.ops import sweep
+
+    short = dict(warmup_iters=100, warmup_max_iters=100,
+                 n_iterations_update=100, device=dev)
+    legs, parity = {}, {}
+    sweep.chromatic_sweeps.launches = 0
+    for name, kw in (("best_chains_leg", dict(
+            n_chains=96, covparams_steps=3, lean_records=True,
+            n_timed_iters=100, field_thinning=0.05, parity_out=parity)),
+            ("reference_protocol_3_chains", dict(
+                n_chains=3, n_timed_iters=200, field_thinning=0.1))):
+        legs[name] = bench.measure_engine(**short, **kw)
+    launches = sweep.chromatic_sweeps.launches
+    base = bench.measure_r_equivalent_baseline(n_iters=2)
+    return bench.result_line(legs, base, parity, {}), legs, launches
+
+
+def check_bench_line(result):
+    """tests/test_bench_smoke.py's checks, and the preflight's verdict."""
+    detail = result["detail"]
+    if "errors" in detail:
+        raise RuntimeError(f"bench: errors {detail['errors']}")
+    if not (result["value"] > 0.0 and result["vs_baseline"] > 0.0):
+        raise RuntimeError(f"bench: value {result['value']}, vs_baseline "
+                           f"{result['vs_baseline']}")
+    if not detail["sweep_parity_preflight"]["ok"]:
+        raise RuntimeError("bench: preflight "
+                           f"{detail['sweep_parity_preflight']}")
+    legs = [detail["best_config"]] + [
+        detail[k] for k in ("reference_protocol_3_chains", "best_chains_leg")
+        if k in detail]
+    lean = [leg for leg in legs if leg["lean_records"]]
+    if not (lean and lean[0]["ess_per_s"]["field_mean"] > 0.0
+            and lean[0]["rhat_timed_window"] is not None
+            and lean[0]["field_kept_samples"] > 0):
+        raise RuntimeError(f"bench: no usable lean leg in {legs}")
+
+
 GATHER_KERNELS = (
     ("gather_sweeps", "nngp_tpu_torch/csrc/gather_sweep.cu",
      "experiments/gather_bench.py:92"),
@@ -678,6 +763,35 @@ def main():
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(m_tab["names"], m_tab["table"])}))
+
+    t = time.perf_counter()
+    differ, total = determinism(dev, locs, y, X)
+    if differ:
+        raise RuntimeError(f"determinism: {differ} of {total} elements "
+                           "differ between two runs from one seed")
+    phase("determinism", f"initialize -> run 10 iterations twice from seed 1, "
+          f"n={mc.graph.n}, 3 chains: {differ} of {total} state and record "
+          "elements differ", t)
+
+    t = time.perf_counter()
+    result, legs, bench_launches = bench_legs(dev)
+    check_bench_line(result)
+    want = 1 + sum(e["warmup_iters"] + e["iters"] for e in legs.values())
+    if bench_launches != want:
+        raise RuntimeError(f"bench: the sweep kernel launched "
+                           f"{bench_launches} times, expected {want}")
+    d = result["detail"]
+    phase("bench", f"preflight max abs diff "
+          f"{d['sweep_parity_preflight']['max_abs_diff']:.3e} ok; "
+          + "; ".join(f"{name}: {e['n_chains']} chains K={e['covparams_steps']}"
+                      f" {1e3 / e['it_per_s']:.2f} ms/iteration, ESS/s "
+                      f"range {e['ess_per_s']['range']:.4f} field "
+                      f"{e['ess_per_s']['field_mean']:.4f}, window R-hat "
+                      f"{e['rhat_timed_window']}" for name, e in legs.items())
+          + f"; baseline {d['r_equiv_it_per_s']:.4f} it/s; headline "
+          f"{result['value']} ESS/s, vs_baseline {result['vs_baseline']}; "
+          f"sweep kernel launches {bench_launches}", t)
+    print("  " + json.dumps(result))
 
     print(json.dumps({"kernels": [{
         "name": "chromatic_sweeps", "route": "cuda",

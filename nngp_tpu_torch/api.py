@@ -130,6 +130,7 @@ def initialize(
     response_model: str = "Gaussian",
     n_chains: int = 3,
     seed: int = 1,
+    dtype=np.float32,
     device="cuda",
     adaptive_proposal: bool = True,
     verbose: bool = True,
@@ -142,9 +143,14 @@ def initialize(
     with the same NumPy code and random stream as ``nngp_tpu.initialize``.
     ``adaptive_proposal=False`` gives every chain the reference's isotropic
     (log_scale, shape) proposal instead of the adaptive-covariance one
-    (nngp_tpu's states with ``prop_mean=None``).
+    (nngp_tpu's states with ``prop_mean=None``).  ``dtype`` is there for
+    ``nngp_tpu``'s signature: the port stores float32 only, so any other
+    dtype raises.
     """
     t_begin = time.time()
+    if np.dtype(dtype) != np.float32:
+        raise ValueError(f"dtype {np.dtype(dtype)} is not supported: "
+                         "nngp_tpu_torch stores float32 only")
     device = interop.resolve_device(device)
     _full_f32_matmuls()
     if response_model != "Gaussian":
@@ -384,6 +390,7 @@ def run(
     log_jsonl: str | None = None,
     plot_trace: str | None = None,
     plot_beta: bool = False,
+    n_cores=None,
 ) -> MCMC:
     """Cycle loop with per-cycle diagnostics and early stop
     (mcmc_nngp_run.R:1-52).  All chains advance together; the records of a
@@ -396,7 +403,9 @@ def run(
     and trace_beta.png with ``plot_beta`` (mcmc_nngp_run.R:36-37; needs
     matplotlib); the diagnostics; ``log_jsonl`` gets one JSON line (cycle,
     iteration, elapsed_s, cycle_s, R_hat); ``save_name`` receives the fit
-    (:func:`save`); then the early-stop test."""
+    (:func:`save`); then the early-stop test.  ``n_cores`` is accepted for
+    the reference's signature (mcmc_nngp_run.R:3) and ignored: the chains
+    advance together on the device."""
     _full_f32_matmuls()
     cfg = UpdateConfig(
         n_iterations=int(n_iterations_update),

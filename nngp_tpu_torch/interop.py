@@ -30,7 +30,8 @@ import torch
 from nngp_tpu_torch.models.gaussian import ChainState, ModelData
 from nngp_tpu_torch.preprocess.coloring import color_csr, sweep_plan
 from nngp_tpu_torch.preprocess.design import Design
-from nngp_tpu_torch.preprocess.graph import PLAN_FIELDS, VecchiaGraph
+from nngp_tpu_torch.preprocess.graph import (PLAN_FIELDS, VecchiaGraph,
+                                             sum_plans)
 
 
 def _colors_from_padded(colors_idx: np.ndarray, n: int) -> np.ndarray:
@@ -63,6 +64,8 @@ def graph_from_numpy(graph) -> VecchiaGraph:
         locs_match=np.asarray(graph.locs_match),
         hctam_scol_1=np.asarray(graph.hctam_scol_1),
         obs_per_loc=np.asarray(graph.obs_per_loc),
+        **sum_plans(graph.NNarray, graph.pair_edge_id, graph.locs_match,
+                    int(graph.n_edges)),
         covfun=graph.covfun,
         n_edges=int(graph.n_edges),
         d_floor=float(graph.d_floor),

@@ -36,6 +36,7 @@ from nngp_tpu_torch.ops.trisolve import level_solve
 from nngp_tpu_torch.ops.vecchia import (
     linv_mult,
     nngp_loglik_diff,
+    ordered_sum,
     precision_diag_and_q_edges,
     sum64,
     vecchia_linv,
@@ -385,8 +386,9 @@ def sweep_inputs(graph, data, state, linv, mu):
     (beta_0, e^-log_scale, e^-log_noise_variance))."""
     pdiag, q_edges = precision_diag_and_q_edges(linv, graph)
     q_plan = q_edges.index_select(1, graph.plan_edge)
-    # residual scatter-sum (ref :260), independent of the field
-    rs = torch.zeros_like(pdiag).index_add_(1, graph.locs_match, data.y - mu)
+    # residual sums by site in locs_match order (ref :260), independent of
+    # the field
+    rs = ordered_sum(data.y - mu, graph.obs_sum)
     inv_scale = torch.exp(-state.log_scale)
     inv_noise = torch.exp(-state.log_noise_variance)
     P = inv_scale[:, None] * pdiag + inv_noise[:, None] * graph.obs_per_loc

@@ -7,9 +7,10 @@ the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
 - ``vecchia_linv``: for every site i, the (m+1)x(m+1) correlation of its
   neighbour set, an m x m Cholesky unrolled over the static neighbour count
   (elementwise over [C, n], no batched-LAPACK loop) and row i of L.
-- ``linv_mult`` / ``linv_t_mult``: L x and L' z by gather and scatter-add.
-- ``precision_diag_and_q_edges``: the nonzeros of Q = L'L by one
-  scatter-add over the moralized-edge map.
+- ``linv_mult`` / ``linv_t_mult``: L x by gather, L' z by a sum onto the
+  columns.
+- ``precision_diag_and_q_edges``: the nonzeros of Q = L'L by sums over the
+  compressed rows' entries and over the moralized-edge map.
 - ``nngp_loglik`` / ``nngp_loglik_diff``: the Vecchia log-density, and the
   MH ratio of two factors as one float64-accumulated sum of per-site
   differences (the role of ``nngp_tpu``'s double-float ``df_sum``).
@@ -17,9 +18,12 @@ the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
 Compressed-row convention (same as GpGp): row i of L has entries at columns
 NNarray[i, :] = [i, parents...]; linv[..., i, 0] is the diagonal.
 
-On CUDA, ``index_add_`` is atomic, so the summation order of the
-scatter-adds (``linv_t_mult``, ``precision_diag_and_q_edges``) changes from
-run to run: results agree to float32 rounding, not bit for bit.
+Every scatter-sum (``linv_t_mult``, ``precision_diag_and_q_edges``, and
+the residual sums of ``models/gaussian.py:sweep_inputs``) is an
+``ordered_sum`` over index tables the graph built on the host: each target
+adds its terms in increasing term index, the order of ``index_add_`` on
+the CPU, with no atomics.  So the same inputs give the same bits on every
+run, on the card as on the CPU, and the CPU's bits equal ``index_add_``'s.
 """
 
 from __future__ import annotations
@@ -118,6 +122,21 @@ def vecchia_linv(graph, natural_shape: torch.Tensor) -> torch.Tensor:
     return linv_rows_from_K(K, graph.nn_mask, graph.d_floor)
 
 
+def ordered_sum(vals: torch.Tensor, plan) -> torch.Tensor:
+    """out[:, t] = the sum of vals[:, i] over the terms i whose target is t,
+    added one at a time in increasing i from zero; vals [C, N] -> [C, T].
+    ``plan`` is the graph's ``preprocess.graph.OrderedSum`` of the map
+    i -> t: one gather, one add per step (a prefix of the targets ranked by
+    their number of terms), one gather back to target order."""
+    terms = vals.index_select(1, plan.src)
+    acc = vals.new_zeros(vals.shape[0], plan.pos.shape[0])
+    lo = 0
+    for k in plan.steps:
+        acc.narrow(1, 0, k).add_(terms.narrow(1, lo, k))
+        lo += k
+    return acc.index_select(1, plan.pos)
+
+
 def linv_mult(linv: torch.Tensor, x: torch.Tensor, graph) -> torch.Tensor:
     """y = L x per chain (GpGp::Linv_mult, mcmc_nngp_update_Gaussian.R:10).
     x: [C, n] -> [C, n], or [C, n, c] -> [C, n, c]."""
@@ -130,25 +149,23 @@ def linv_mult(linv: torch.Tensor, x: torch.Tensor, graph) -> torch.Tensor:
 
 
 def linv_t_mult(linv: torch.Tensor, z: torch.Tensor, graph) -> torch.Tensor:
-    """y = L' z per chain by scatter-add over the compressed rows."""
-    nn = torch.clamp_min(graph.NNarray, 0).reshape(-1)
+    """y = L' z per chain: the compressed rows' entries summed onto their
+    columns in (row, slot) order."""
     vals = (linv * graph.nn_mask * z[..., None]).reshape(z.shape[0], -1)
-    return torch.zeros_like(z).index_add_(1, nn, vals)
+    return ordered_sum(vals, graph.nn_sum)
 
 
 def precision_diag_and_q_edges(linv: torch.Tensor, graph):
     """Nonzeros of Q = L'L per chain: (diagonal [C, n], moralized-edge
-    values [C, E+1]).  The trailing slot E accumulates the padded position
-    pairs, whose products are exact zeros."""
+    values [C, E+1]).  The trailing slot E, the padded position pairs'
+    sentinel, is 0.  Each sum adds its terms in a
+    fixed order: a site's entries in (row, slot) order, an edge's position
+    pairs in ``pair_edge_id`` order."""
     C = linv.shape[0]
-    nn = torch.clamp_min(graph.NNarray, 0).reshape(-1)
     masked = linv * graph.nn_mask
-    pdiag = torch.zeros(C, graph.n, dtype=linv.dtype, device=linv.device)
-    pdiag.index_add_(1, nn, (masked * masked).reshape(C, -1))
+    pdiag = ordered_sum((masked * masked).reshape(C, -1), graph.nn_sum)
     prods = masked[:, :, graph.pair_a] * masked[:, :, graph.pair_b]   # [C, n, P]
-    q_edges = torch.zeros(C, graph.n_edges + 1, dtype=linv.dtype,
-                          device=linv.device)
-    q_edges.index_add_(1, graph.pair_edge_id.reshape(-1), prods.reshape(C, -1))
+    q_edges = ordered_sum(prods.reshape(C, -1), graph.pair_sum)
     return pdiag, q_edges
 
 

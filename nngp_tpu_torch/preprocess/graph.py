@@ -3,11 +3,13 @@
 Copy of ``nngp_tpu/preprocess/graph.py`` (same arrays, bit for bit) without
 the pytree registration and without the TPU's padded block schedules
 (``chrom_blocks``, the degree-classed ``chrom_*`` tables, ``levels_idx``).
-It adds the colour-major CSR (``color_ptr``, ``color_sites``) and the
+It adds the colour-major CSR (``color_ptr``, ``color_sites``), the
 sweep plan the chromatic sweep kernel walks (``plan_*``,
-``preprocess/coloring.py:sweep_plan``).  ``build_graph`` returns NumPy
-leaves; ``VecchiaGraph.to(device)`` gives the same dataclass with torch
-leaves: int32 for the colour and plan tables and the padded neighbour
+``preprocess/coloring.py:sweep_plan``) and the tables of the three
+scatter-sums of an iteration (``nn_sum``, ``pair_sum``, ``obs_sum``:
+:class:`OrderedSum`), which add each target's terms in a fixed order.
+``build_graph`` returns NumPy leaves; ``VecchiaGraph.to(device)`` gives
+the same dataclass with torch leaves: int32 for the colour and plan tables and the padded neighbour
 lists, int64 for every other index tensor, float32 values.
 """
 
@@ -39,6 +41,68 @@ _KERNEL_I32 = ("nbr_sites", "nbr_edge", "color_ptr", "color_sites",
                "plan_sites", "plan_ptr", "plan_nbr", "plan_edge")
 # the fields of coloring.sweep_plan's result
 PLAN_FIELDS = ("plan_sites", "plan_ptr", "plan_nbr", "plan_edge")
+
+
+@dataclass(frozen=True)
+class OrderedSum:
+    """Index tables of a sum of N terms into T targets in a fixed order
+    (``ops/vecchia.py:ordered_sum``): each target's terms one at a time in
+    increasing term index, starting from zero — the order of ``index_add_``
+    on the CPU, with no atomics on any device.
+
+    Targets are ranked by their number of terms, most first (ties in target
+    order).  Step j adds the j-th term of the ``steps[j]`` targets that have
+    more than j terms, a prefix of that ranking; ``src`` lists the terms
+    step by step, and ``pos[t]`` is target t's rank."""
+
+    src: object                   # [N] term indices, step-major
+    pos: object                   # [T]
+    steps: tuple                  # non-increasing ints, sum N
+
+    def to(self, device) -> "OrderedSum":
+        return OrderedSum(
+            src=torch.as_tensor(self.src, dtype=torch.int64, device=device),
+            pos=torch.as_tensor(self.pos, dtype=torch.int64, device=device),
+            steps=self.steps)
+
+
+def ordered_sum_plan(targets, n_targets: int) -> OrderedSum:
+    """The :class:`OrderedSum` of terms i -> ``targets[i]`` (NumPy); a term
+    with a negative target is left out (the padding, whose terms are exact
+    zeros: leaving out a zero term never changes a sum that starts from
+    +0)."""
+    targets = np.asarray(targets, dtype=np.int64).reshape(-1)
+    kept = np.flatnonzero(targets >= 0)
+    count = np.bincount(targets[kept], minlength=n_targets)
+    rank = np.argsort(-count, kind="stable")
+    pos = np.empty(n_targets, dtype=np.int64)
+    pos[rank] = np.arange(n_targets)
+    by_target = kept[np.argsort(targets[kept], kind="stable")]
+    first = np.cumsum(count) - count
+    steps = tuple(int((count > j).sum())
+                  for j in range(int(count.max(initial=0))))
+    src = np.concatenate([by_target[first[rank[:k]] + j]
+                          for j, k in enumerate(steps)]
+                         or [np.zeros(0, np.int64)])
+    return OrderedSum(src=src, pos=pos, steps=steps)
+
+
+def sum_plans(NN, pair_edge_id, locs_match, n_edges: int) -> dict:
+    """The graph's three :class:`OrderedSum` fields: ``nn_sum`` (the
+    entries of the compressed rows onto their columns, in (row, slot)
+    order: diag(Q), L' z), ``pair_sum`` (the position pairs of the rows onto
+    their moralized edges, in ``pair_edge_id`` order: Q's off-diagonal; the
+    sentinel edge gets no term, so it sums to 0) and ``obs_sum`` (the
+    observations onto their sites, in ``locs_match`` order: the residual
+    sums)."""
+    NN = np.asarray(NN)
+    n = NN.shape[0]
+    pair_edge_id = np.asarray(pair_edge_id)
+    return {"nn_sum": ordered_sum_plan(NN, n),
+            "pair_sum": ordered_sum_plan(
+                np.where(pair_edge_id == n_edges, -1, pair_edge_id),
+                n_edges + 1),
+            "obs_sum": ordered_sum_plan(locs_match, n)}
 
 
 @dataclass(frozen=True)
@@ -76,6 +140,10 @@ class VecchiaGraph:
     locs_match: object            # [n_obs]
     hctam_scol_1: object          # [n]
     obs_per_loc: object           # f32 [n]
+    # fixed-order scatter-sums (sum_plans)
+    nn_sum: OrderedSum
+    pair_sum: OrderedSum
+    obs_sum: OrderedSum
     # static metadata
     covfun: str
     n_edges: int
@@ -120,6 +188,8 @@ class VecchiaGraph:
             v = getattr(self, f.name)
             if f.name == "level_segs":
                 out[f.name] = tuple(conv(f.name, t) for t in v)
+            elif isinstance(v, OrderedSum):
+                out[f.name] = v.to(device)
             elif isinstance(v, (np.ndarray, torch.Tensor)):
                 out[f.name] = conv(f.name, v)
             else:
@@ -208,6 +278,7 @@ def build_graph(
         locs_match=obs_maps.locs_match,
         hctam_scol_1=obs_maps.hctam_scol_1,
         obs_per_loc=obs_maps.obs_per_loc.astype(dtype),
+        **sum_plans(NN, pair_edge_id, obs_maps.locs_match, edges.shape[0]),
         covfun=covfun,
         n_edges=int(edges.shape[0]),
         d_floor=1e-5 if covfun.startswith("matern") else 1e-12,

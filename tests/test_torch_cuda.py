@@ -310,6 +310,70 @@ def test_save_and_load_on_card(tmp_path):
     assert torch.isfinite(back.states.field).all()
 
 
+# --- reproducibility from a seed, and the bench's preflight ------------------
+
+STATE_FIELDS = ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
+                "field", "tk_ancillary", "tk_sufficient", "prop_mean",
+                "prop_m2", "prop_count")
+RUN = dict(n_iterations_update=10, verbose=False, field_thinning=0.5,
+           Gelman_Rubin_Brooks_stop=(0.0, 0.0))
+
+
+def _assert_same_run(a, b):
+    """States and records equal, bit for bit."""
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(a.states, f), getattr(b.states, f)), f
+    for ra, rb in zip(a.records, b.records):
+        for k in ("beta_0", "beta", "log_scale", "log_noise_variance",
+                  "shape", "field", "saved_field"):
+            np.testing.assert_array_equal(ra[k], rb[k], err_msg=k)
+
+
+@pytest.mark.gpu
+def test_same_seed_same_chain_on_card():
+    """25 iterations twice from one seed: the sums of an iteration add in a
+    fixed order (no atomics), so the two runs agree bit for bit."""
+    dev = _card()
+    a, b = (nngp_tpu_torch.run(_mc(dev), **{**RUN, "n_iterations_update": 25})
+            for _ in range(2))
+    assert a.iterations == b.iterations == 25
+    _assert_same_run(a, b)
+
+
+@pytest.mark.gpu
+def test_resume_bit_identical_on_card(tmp_path):
+    """The card twin of test_torch_saveload.py::test_resume_bit_identical:
+    a fit saved after one cycle, loaded on the card and resumed follows the
+    uninterrupted two-cycle run bit for bit."""
+    dev = _card()
+    whole = nngp_tpu_torch.run(_mc(dev), n_cycles=2, **RUN)
+    half = nngp_tpu_torch.run(_mc(dev), n_cycles=1, **RUN)
+    path = str(tmp_path / "fit.pkl")
+    nngp_tpu_torch.save(half, path)
+    resumed = nngp_tpu_torch.run(nngp_tpu_torch.load(path, device=dev),
+                                 n_cycles=1, **RUN)
+    assert resumed.iterations == whole.iterations == 20
+    _assert_same_run(resumed, whole)
+
+
+@pytest.mark.gpu
+def test_sweep_parity_preflight_on_card():
+    """The bench's preflight at 3 chains: the kernel's zero-noise sweeps of
+    chain 0 against the twin's within 2e-3 * max(1, |f|_inf)."""
+    from nngp_tpu_torch.diagnostics.preflight import chromatic_sweep_parity
+
+    dev = _card()
+    locs, y, X = synthetic_heavy_metals(n=500, p=2, seed=9)
+    mc = nngp_tpu_torch.initialize(
+        locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+        n_chains=3, seed=4, device=dev, verbose=False)
+    out = chromatic_sweep_parity(mc)
+    assert out["ok"], out
+    assert out["device"] == torch.cuda.get_device_name(dev)
+    assert out["rel_tol_used"] == 2e-3
+    assert 0.0 <= out["rms_diff"] <= out["max_abs_diff"]
+
+
 # --- the gather probes' kernels (nngp_tpu_torch/experiments) ---------------
 
 @pytest.mark.gpu

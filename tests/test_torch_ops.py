@@ -139,3 +139,70 @@ def test_nngp_loglik_and_diff(problem):
             jnp.asarray(linv_new[c]), ls_new[c], jnp.asarray(linv_old[c]),
             ls_old[c], jnp.asarray(field[c]), mc.graph))
         assert abs(got_diff[c] - want_diff) < 1e-4, (got_diff[c], want_diff)
+
+
+# --- the fixed-order sums (ops/vecchia.py:ordered_sum) -----------------------
+
+def _sum_cases(g_t, linv, rng):
+    """name -> (the port's result [C, T], its terms [C, N], their targets
+    [N], T) for the four scatter-sums of an iteration."""
+    n = g_t.n
+    masked = linv * g_t.nn_mask
+    nn = torch.clamp_min(g_t.NNarray, 0).reshape(-1)
+    z = torch.as_tensor(rng.normal(size=(C, n)).astype(np.float32))
+    r = torch.as_tensor(rng.normal(size=(C, g_t.n_obs)).astype(np.float32))
+    prods = masked[:, :, g_t.pair_a] * masked[:, :, g_t.pair_b]
+    pdiag, q_edges = tvec.precision_diag_and_q_edges(linv, g_t)
+    return {
+        "pdiag": (pdiag, (masked * masked).reshape(C, -1), nn, n),
+        "q_edges": (q_edges, prods.reshape(C, -1),
+                    g_t.pair_edge_id.reshape(-1), g_t.n_edges + 1),
+        "linv_t_mult": (tvec.linv_t_mult(linv, z, g_t),
+                        (masked * z[..., None]).reshape(C, -1), nn, n),
+        "rs": (tvec.ordered_sum(r, g_t.obs_sum), r, g_t.locs_match, n),
+    }
+
+
+@pytest.fixture(scope="module")
+def repeated_sites():
+    """A problem whose sites hold 1 to 3 observations (obs_sum has three
+    steps), with its factor."""
+    rng = np.random.default_rng(5)
+    locs = rng.uniform(size=(200, 2))
+    locs = np.concatenate([locs, locs[:60], locs[:25]])
+    mc = nngp_tpu.initialize(locs, rng.normal(size=len(locs)), m=5,
+                             n_chains=C, seed=3,
+                             stationary_covfun="exponential_isotropic")
+    g_t, _, _ = from_numpy(mc.graph, mc.data, mc.states, device="cpu")
+    natural = np.exp(np.asarray(mc.states.shape, dtype=np.float32))
+    return mc, g_t, torch.as_tensor(_jax_linv(mc, natural)), rng
+
+
+@pytest.mark.parametrize("name", ["pdiag", "q_edges", "linv_t_mult", "rs"])
+def test_ordered_sums_match_index_add_bit_for_bit(repeated_sites, name):
+    """Each sum adds a target's terms in increasing term index from zero,
+    the order of index_add_ on the CPU: the same bits as index_add_, and
+    the same bits on a second call."""
+    _, g_t, linv, rng = repeated_sites
+    assert g_t.obs_sum.steps == tuple(
+        int((np.bincount(g_t.locs_match.numpy()) > j).sum()) for j in range(3))
+    seed = int(rng.integers(1 << 30))
+    got, terms, targets, T = _sum_cases(g_t, linv,
+                                        np.random.default_rng(seed))[name]
+    again = _sum_cases(g_t, linv, np.random.default_rng(seed))[name][0]
+    want = torch.zeros(C, T).index_add_(1, targets, terms)
+    assert torch.equal(got, want)
+    assert torch.equal(got, again)
+
+
+def test_residual_sums_match_nngp_tpu(repeated_sites):
+    """rs against nngp_tpu's scatter (models/gaussian.py:sweep_inputs,
+    ``zeros(n).at[locs_match].add``) at 1e-5; pdiag, q_edges and L'z are
+    held against nngp_tpu's functions by the tests above."""
+    mc, g_t, linv, rng = repeated_sites
+    got, r, _, n = _sum_cases(g_t, linv, rng)["rs"]
+    for c in range(C):
+        want = jnp.zeros(n, jnp.float32).at[
+            jnp.asarray(mc.graph.locs_match)].add(jnp.asarray(r[c].numpy()))
+        np.testing.assert_allclose(got[c].numpy(), np.asarray(want),
+                                   rtol=1e-5, atol=1e-5)
