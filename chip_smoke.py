@@ -54,7 +54,21 @@ with a nonzero exit and no "ok" line:
  11. determinism  the main path twice from seed 1 (initialize -> run, 10
                   iterations, 3 chains, full width): states and records bit
                   for bit, the count of differing elements 0
- 12. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+ 12. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
+                  2 iterations x 2 chains of the 96-site toy, records finite
+ 13. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
+                  K = 1) saved and loaded twice, then run for 25 iterations
+                  with run(mc, mesh=...) and with run(mc): the count of
+                  differing state and record elements 0; collective_grb over
+                  NCCL against the host Gelman_Rubin_Brooks, rtol 1e-10
+ 14. two ranks    a 6-chain fit at full width saved once; then
+                  python -m nngp_tpu_torch.parallel.resume on it for 25
+                  iterations as 1 process (6 chains) and twice as 2 gloo
+                  ranks sharing the card (3 chains each): the ranks hold the
+                  same R-hat and fit digest, both 2-rank launches the same
+                  digest, every rank one sweep-kernel launch an iteration;
+                  ms per iteration of each
+ 15. bench        the bench's path (nngp_tpu_torch/bench.py) through its
                   functions at full width with short fixed windows: the
                   sweep kernel's parity preflight, the 96-chain leg (K = 3,
                   lean records, 100 warmup + 100 timed iterations), the
@@ -75,6 +89,7 @@ The line before last is the kernels' JSON; the last line is
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -530,9 +545,6 @@ def save_load(mc, dev):
 def determinism(dev, locs, y, X):
     """initialize -> run twice from seed 1: the count of elements of the
     states and records that differ between the two runs."""
-    import numpy as np
-    import torch
-
     import nngp_tpu_torch
 
     fits = []
@@ -541,7 +553,15 @@ def determinism(dev, locs, y, X):
             locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
             n_chains=3, seed=1, device=dev, verbose=False)
         fits.append(run_counted(mc, 10, field_thinning=0.5, verbose=False)[0])
-    a, b = fits
+    return count_differing(*fits)
+
+
+def count_differing(a, b):
+    """(elements of the states and records of fits a and b that differ,
+    elements compared)."""
+    import numpy as np
+    import torch
+
     differ, total = 0, 0
     for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
               "field", "tk_ancillary", "tk_sufficient", "prop_mean",
@@ -556,6 +576,110 @@ def determinism(dev, locs, y, X):
             total += ra[k].size
     torch.cuda.synchronize()
     return differ, total
+
+
+def entry_run():
+    """entry() on the card: (sweep kernel launches, chains, iterations)."""
+    import torch
+
+    from nngp_tpu_torch.entry import entry
+    from nngp_tpu_torch.ops import sweep
+
+    fn, args = entry()
+    sweep.chromatic_sweeps.launches = 0
+    states, recs = fn(*args)
+    torch.cuda.synchronize()
+    for k, v in recs.items():
+        if not bool(torch.isfinite(v).all()):
+            raise RuntimeError(f"entry(): non-finite {k} records")
+    T, C = recs["log_scale"].shape
+    if sweep.chromatic_sweeps.launches != T:
+        raise RuntimeError(f"entry(): {sweep.chromatic_sweeps.launches} "
+                           f"sweep kernel launches in {T} iterations")
+    return sweep.chromatic_sweeps.launches, C, T
+
+
+GRB_KEYS = ("beta_0", "log_scale", "log_noise_variance")
+
+
+def chains_mesh_parity(mc, dev, td):
+    """A one-process NCCL group: ``mc`` saved, loaded twice, run for 25
+    iterations with and without the chains mesh; (differing elements,
+    elements, mesh run s, plain run s, launches, collective_grb's largest
+    relative difference from the host Gelman_Rubin_Brooks)."""
+    import os
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.parallel import (chains_mesh, collective_grb,
+                                         initialize_distributed)
+
+    path = os.path.join(td, "fit3.pkl")
+    nngp_tpu_torch.save(mc, path)
+    meshed, plain = (nngp_tpu_torch.load(path, device=dev) for _ in range(2))
+    initialize_distributed("file://" + os.path.join(td, "rdzv"), 1, 0,
+                           device_type="cuda")
+    try:
+        mesh = chains_mesh()
+        if (mesh.device_type, dist.get_backend()) != ("cuda", "nccl"):
+            raise RuntimeError(f"chains mesh: {mesh.device_type} over "
+                               f"{dist.get_backend()}")
+        dist.barrier()   # NCCL sets up its communicator here, untimed
+        kw = dict(field_thinning=0.5, verbose=False, covparams_steps=1)
+        meshed, mesh_s, launches = run_counted(meshed, 25, mesh=mesh, **kw)
+        plain, plain_s, _ = run_counted(plain, 25, **kw)
+        differ, total = count_differing(meshed, plain)
+        # K8 over NCCL against the host, on the rows the host keeps
+        T = meshed.records[0]["log_scale"].shape[0]
+        lo = max(int(np.floor(0.5 * T)) - 1, 0)
+        samples = np.stack([np.stack([r[k][lo:] for k in GRB_KEYS], axis=-1)
+                            for r in meshed.records])
+        got = collective_grb(torch.as_tensor(samples, device=dev),
+                             meshed.n_chains).cpu().numpy()
+    finally:
+        dist.destroy_process_group()
+    want = nngp_tpu_torch.Gelman_Rubin_Brooks(
+        [dict({k: r[k] for k in GRB_KEYS}, shape=np.zeros((T, 0)))
+         for r in meshed.records], 0.5)["R_hat"]
+    grb_err = float(np.max(np.abs(got - want) / np.abs(want)))
+    return differ, total, mesh_s, plain_s, launches, grb_err
+
+
+def two_ranks(dev, locs, y, X, td):
+    """A 6-chain fit saved once, then resumed for 25 iterations by
+    ``nngp_tpu_torch.parallel.resume`` as one process and twice as two gloo
+    ranks on the card; returns {launch name: per-rank JSON lines}."""
+    import os
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.parallel.distributed import launch_local
+
+    path = os.path.join(td, "fit6.pkl")
+    nngp_tpu_torch.save(nngp_tpu_torch.initialize(
+        locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+        n_chains=6, seed=1, device=dev, verbose=False), path)
+    argv = ["-m", "nngp_tpu_torch.parallel.resume", path, "--iterations",
+            "25", "--mesh-device", "cpu"]
+    out = {}
+    for name, world in (("1 x 6", 1), ("2 x 3", 2), ("2 x 3 again", 2)):
+        out[name] = [json.loads(text.strip().splitlines()[-1])
+                     for text in launch_local(argv, world, timeout=300)]
+    for name, ranks in out.items():
+        for r in ranks:
+            if r["sweep_launches"] != 25 or r["iterations"] != 25:
+                raise RuntimeError(f"two ranks, {name}: rank {r['rank']} "
+                                   f"{r['sweep_launches']} sweep kernel "
+                                   f"launches, {r['iterations']} iterations")
+            for k in ("digest", "r_hat"):
+                if r[k] != ranks[0][k]:
+                    raise RuntimeError(f"two ranks, {name}: rank "
+                                       f"{r['rank']}'s {k} differs")
+    if out["2 x 3"][0]["digest"] != out["2 x 3 again"][0]["digest"]:
+        raise RuntimeError("two ranks: a second launch gave other chains")
+    return out
 
 
 def bench_legs(dev):
@@ -772,6 +896,39 @@ def main():
     phase("determinism", f"initialize -> run 10 iterations twice from seed 1, "
           f"n={mc.graph.n}, 3 chains: {differ} of {total} state and record "
           "elements differ", t)
+
+    t = time.perf_counter()
+    e_launches, e_chains, e_iters = entry_run()
+    phase("entry", f"entry(): {e_iters} iterations x {e_chains} chains of the "
+          f"96-site toy on the card, records finite, sweep kernel launches "
+          f"{e_launches}", t)
+
+    with tempfile.TemporaryDirectory() as td:
+        t = time.perf_counter()
+        differ, total, mesh_s, plain_s, mesh_launches, grb_err = \
+            chains_mesh_parity(mc, dev, td)
+        if differ or grb_err > 1e-10:
+            raise RuntimeError(f"chains mesh: {differ} of {total} elements "
+                               f"differ; collective_grb vs host relative "
+                               f"difference {grb_err:.3e}")
+        phase("chains mesh", f"one-rank NCCL mesh, n={mc.graph.n}, "
+              f"{mc.n_chains} chains, K = 1, 25 iterations: run(mesh=) "
+              f"{1e3 * mesh_s / 25:.2f} ms/iteration (sweep kernel launches "
+              f"{mesh_launches}), run() {1e3 * plain_s / 25:.2f}; {differ} of "
+              f"{total} state and record elements differ; collective_grb "
+              f"over NCCL vs host R-hat: largest relative difference "
+              f"{grb_err:.3e} <= 1e-10", t)
+
+        t = time.perf_counter()
+        ranks = two_ranks(dev, locs, y, X, td)
+        phase("two ranks", "resume of a 6-chain fit, 25 iterations, "
+              f"n={mc.graph.n}, gloo on one card: " + "; ".join(
+                  f"{name}: " + ", ".join(f"{r['ms_per_iteration']:.2f}"
+                                          for r in rs) + " ms/iteration"
+                  for name, rs in ranks.items())
+              + "; the ranks agree on R-hat and digest, the second 2-rank "
+              "launch gives the same digest "
+              f"{ranks['2 x 3'][0]['digest'][:12]}", t)
 
     t = time.perf_counter()
     result, legs, bench_launches = bench_legs(dev)

@@ -15,6 +15,7 @@ package's, so a fit saved by one package resumes in the other.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import time
@@ -323,11 +324,15 @@ def initialize(
     return mc
 
 
-def _cycle_generator(mc: MCMC, cycle_start: int) -> torch.Generator:
-    """The cycle's random stream, a function of (seed, first iteration):
-    resuming a fit continues the stream one long run would have used."""
+def _cycle_generator(mc: MCMC, cycle_start: int, lo: int = 0
+                     ) -> torch.Generator:
+    """The cycle's random stream for the chains from ``lo`` on, a function of
+    (seed, first iteration, lo): resuming a fit continues the stream one
+    long run would have used; ``lo = 0`` is the stream of an unsharded
+    run, which draws for all its chains at once."""
     gen = torch.Generator(device=mc.device)
-    gen.manual_seed(int(mc.seed) * 1_000_003 + int(cycle_start))
+    gen.manual_seed(int(mc.seed) * 1_000_003 + int(cycle_start)
+                    + int(lo) * 2**40)
     return gen
 
 
@@ -391,6 +396,7 @@ def run(
     plot_trace: str | None = None,
     plot_beta: bool = False,
     n_cores=None,
+    mesh=None,
 ) -> MCMC:
     """Cycle loop with per-cycle diagnostics and early stop
     (mcmc_nngp_run.R:1-52).  All chains advance together; the records of a
@@ -405,8 +411,28 @@ def run(
     iteration, elapsed_s, cycle_s, R_hat); ``save_name`` receives the fit
     (:func:`save`); then the early-stop test.  ``n_cores`` is accepted for
     the reference's signature (mcmc_nngp_run.R:3) and ignored: the chains
-    advance together on the device."""
+    advance together on the device.
+
+    ``mesh`` (a 1-D "chains" ``DeviceMesh``, ``parallel.chains_mesh``)
+    shards the chains over the ranks of a process group: every rank calls
+    ``run`` with the same fit (same seed and ``n_chains``, which the mesh
+    size must divide), advances its chains ``[lo, hi)``
+    (``parallel.local_chain_slice``) on its own device, and at each cycle's
+    end the ranks exchange states and records, so every rank leaves with
+    the whole fit and takes the same early-stop decision.  Rank r draws
+    from the stream of (seed, cycle start, lo): a mesh of one rank gives
+    the chains of ``run`` without a mesh bit for bit, and a mesh of k ranks
+    gives chains that depend on (seed, k) only.  Only the rank holding
+    chain 0 prints and writes ``plot_trace``, ``log_jsonl`` and
+    ``save_name``."""
     _full_f32_matmuls()
+    lo = 0
+    if mesh is not None:
+        from nngp_tpu_torch.parallel.distributed import local_chain_slice
+
+        lo, _ = local_chain_slice(mc.n_chains, mesh)
+    writes = lo == 0
+    verbose = verbose and writes
     cfg = UpdateConfig(
         n_iterations=int(n_iterations_update),
         shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
@@ -417,20 +443,27 @@ def run(
         covparams_steps=int(covparams_steps),
     )
     T = cfg.n_iterations
+    # field thinning (ref round(it*t)==it*t rule, update_Gaussian.R:56):
+    # iteration it writes its snapshot to record row slots[it-1]
+    it = np.arange(1, T + 1)
+    saved = it[np.round(it * field_thinning) == it * field_thinning]
+    slots = np.full(T, len(saved), dtype=np.int64)
+    slots[saved - 1] = np.arange(len(saved))
+    cfg = replace(cfg, n_saved=len(saved))
+    if mesh is None:
+        cycle_fn = functools.partial(run_cycle, mc.graph, mc.data, cfg)
+    else:
+        from nngp_tpu_torch.parallel.chains import make_sharded_cycle_fn
+
+        cycle_fn = make_sharded_cycle_fn(mc.graph, mc.data, cfg, mesh)
     for cycle in range(1, n_cycles + 1):
         if verbose:
             print(f"cycle = {cycle}")
         t_cycle = time.time()
         cycle_start = mc.iterations
-        # field thinning (ref round(it*t)==it*t rule, update_Gaussian.R:56):
-        # iteration it writes its snapshot to record row slots[it-1]
-        it = np.arange(1, T + 1)
-        saved = it[np.round(it * field_thinning) == it * field_thinning]
-        slots = np.full(T, len(saved), dtype=np.int64)
-        slots[saved - 1] = np.arange(len(saved))
-        states, recs = run_cycle(
-            mc.graph, mc.data, replace(cfg, n_saved=len(saved)), mc.states,
-            _cycle_generator(mc, cycle_start), cycle_start, saved_slots=slots)
+        states, recs = cycle_fn(mc.states,
+                                _cycle_generator(mc, cycle_start, lo),
+                                cycle_start, saved_slots=slots)
         mc.states = states
         recs = {k: v.cpu().numpy() for k, v in recs.items()}
         for i, rec in enumerate(mc.records):
@@ -443,7 +476,7 @@ def run(
             rec["iterations"].append((cycle_start + T,
                                       time.time() - mc.t_begin))
 
-        if plot_trace is not None:
+        if writes and plot_trace is not None:
             from nngp_tpu_torch.diagnostics.plots import (
                 raw_chains_plots_beta,
                 raw_chains_plots_covparms,
@@ -468,7 +501,7 @@ def run(
                 with np.printoptions(precision=3, suppress=True):
                     print("Gelman-Rubin-Brooks R-hat : ")
                     print(dict(zip(grb["names"], np.round(grb["R_hat"], 3))))
-        if log_jsonl is not None:
+        if writes and log_jsonl is not None:
             entry = {
                 "cycle": cycle,
                 "iteration": mc.iterations,
@@ -480,7 +513,7 @@ def run(
                     zip(grb["names"], np.round(grb["R_hat"], 4).tolist()))
             with open(log_jsonl, "a") as f:
                 f.write(json.dumps(entry) + "\n")
-        if save_name:
+        if writes and save_name:
             save(mc, save_name)
         if grb is not None and (
                 grb["R_hat"][0] < Gelman_Rubin_Brooks_stop[0]

@@ -1,0 +1,141 @@
+"""Driver entry points, the port of ``__graft_entry__.py``.
+
+- ``entry(device="cuda")`` -> (fn, example_args): one Gibbs cycle (2
+  iterations) of 2 chains on the 96-site toy, on the card unless
+  ``device="cpu"``.
+- ``dryrun_multichip(n_devices, device_type=None)``: one sharded 8-iteration
+  cycle with two chains per rank on a chains mesh of ``n_devices`` ranks,
+  then the collective Gelman-Rubin-Brooks reduction over the ranks' own
+  chains, which must give a finite R-hat of shape (4,).  Called inside a
+  process group of that size it runs this rank's part; otherwise it
+  starts ``n_devices`` local ranks (``launch_local``).  The halo (chains x
+  sites) and halo-plan parts of ``__graft_entry__.dryrun_multichip`` wait
+  for the port of halo mode.
+
+    python -m nngp_tpu_torch.entry [--device cuda|cpu] [--dryrun N]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+
+import numpy as np
+import torch
+
+
+def _toy_problem(n=96, n_chains=3, seed=0, m=4, device="cuda"):
+    """``__graft_entry__._toy_problem``: the same data and seed."""
+    import nngp_tpu_torch
+
+    rng = np.random.default_rng(seed)
+    locs = rng.uniform(size=(n, 2)) * 8.0
+    d = np.sqrt(((locs[:, None] - locs[None]) ** 2).sum(-1))
+    K = 2.0 * np.exp(-d / 1.0)
+    w = np.linalg.cholesky(K + 1e-8 * np.eye(n)) @ rng.normal(size=n)
+    y = 0.5 + w + rng.normal(size=n) * 0.5
+    return nngp_tpu_torch.initialize(
+        locs, y, m=m, n_chains=n_chains, seed=seed + 1, device=device,
+        stationary_covfun="exponential_isotropic", verbose=False)
+
+
+def entry(device="cuda"):
+    """(fn, example_args): ``fn(states, gen, iter_start)`` runs one cycle of
+    2 iterations of every chain and returns (states, records)."""
+    from nngp_tpu_torch.models.gaussian import UpdateConfig, run_cycle
+
+    mc = _toy_problem(n=96, n_chains=2, device=device)
+    cfg = UpdateConfig(
+        n_iterations=2,
+        shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
+        locs_cols=(),
+        n_chromatic=2,
+    )
+    graph, data = mc.graph, mc.data
+
+    def fn(states, gen, iter_start):
+        return run_cycle(graph, data, cfg, states, gen, iter_start)
+
+    gen = torch.Generator(device=mc.device).manual_seed(0)
+    return fn, (mc.states, gen, 0)
+
+
+def _dryrun_rank(n_devices: int, device_type: str) -> dict:
+    """This rank's part of ``dryrun_multichip`` in a live group."""
+    import torch.distributed as dist
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.parallel import chains_mesh, local_chain_slice
+    from nngp_tpu_torch.parallel.collectives import make_collective_grb_fn
+
+    if dist.get_world_size() != n_devices:
+        raise ValueError(f"dryrun_multichip({n_devices}) in a group of "
+                         f"{dist.get_world_size()} ranks")
+    n_chains = 2 * n_devices    # two chains per rank
+    mc = _toy_problem(n=64, n_chains=n_chains, m=3, device=device_type)
+    mesh = chains_mesh(device_type)
+    mc = nngp_tpu_torch.run(mc, n_iterations_update=8, n_chromatic=2,
+                            mesh=mesh, verbose=False)
+    lo, hi = local_chain_slice(n_chains, mesh)
+    recs = mc.records[lo:hi]
+    if not all(np.isfinite(r["log_scale"]).all() for r in mc.records):
+        raise RuntimeError("dryrun_multichip: non-finite log_scale records")
+    samples = torch.as_tensor(np.stack([np.stack(
+        [r["beta_0"], r["log_scale"], r["log_noise_variance"]], axis=-1)
+        for r in recs]))                                   # [2, 8, 3]
+    r_hat = make_collective_grb_fn(mesh, n_chains)(samples).cpu().numpy()
+    if r_hat.shape != (4,) or not np.isfinite(r_hat).all():
+        raise RuntimeError(f"dryrun_multichip: R-hat {r_hat}")
+    return {"rank": mesh.get_rank(), "chains": [lo, hi],
+            "r_hat": r_hat.tolist()}
+
+
+def dryrun_multichip(n_devices: int, device_type: str | None = None) -> None:
+    """One sharded cycle and the collective R-hat on ``n_devices`` ranks of
+    ``device_type`` ("cuda" by default, one card a rank over NCCL; "cpu"
+    over gloo)."""
+    import torch.distributed as dist
+
+    from nngp_tpu_torch.parallel.distributed import launch_local
+
+    device_type = device_type or "cuda"
+    if dist.is_initialized():
+        out = [_dryrun_rank(n_devices, device_type)]
+    else:
+        lines = launch_local(["-m", "nngp_tpu_torch.entry", "--device",
+                              device_type, "--dryrun", str(n_devices)],
+                             n_devices, timeout=300)
+        out = [json.loads(text.strip().splitlines()[-1]) for text in lines]
+        if any(o["r_hat"] != out[0]["r_hat"] for o in out):
+            raise RuntimeError(f"dryrun_multichip: the ranks' R-hats differ "
+                               f"{[o['r_hat'] for o in out]}")
+    print(f"dryrun_multichip OK: {n_devices} x 2 chains ({device_type} "
+          f"ranks), R-hat head {np.round(out[0]['r_hat'][:2], 3)}")
+
+
+def main(argv=None) -> int:
+    from nngp_tpu_torch.parallel import initialize_distributed
+
+    p = argparse.ArgumentParser(description="entry() and dryrun_multichip")
+    p.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    p.add_argument("--dryrun", type=int, default=0,
+                   help="ranks of dryrun_multichip (0: none)")
+    args = p.parse_args(argv)
+    if initialize_distributed(device_type=args.device):
+        # one rank of a dryrun_multichip launch
+        print(json.dumps(_dryrun_rank(args.dryrun, args.device)), flush=True)
+        torch.distributed.destroy_process_group()
+        return 0
+    fn, example = entry(args.device)
+    states, recs = fn(*example)
+    if not torch.isfinite(recs["log_scale"]).all():
+        raise RuntimeError("entry(): non-finite records")
+    print("entry() run OK")
+    if args.dryrun:
+        dryrun_multichip(args.dryrun, args.device)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

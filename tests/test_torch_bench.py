@@ -25,7 +25,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def test_bench_smoke_emits_json():
-    env = dict(os.environ, PYTHONPATH=REPO)
+    # one thread, as this module runs: OpenMP threads that spin-wait on
+    # cores other test processes hold slow the run many times over
+    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="1")
     r = subprocess.run(
         [sys.executable, "-m", "nngp_tpu_torch.bench", "--smoke",
          "--device", "cpu"],

@@ -357,6 +357,46 @@ def test_resume_bit_identical_on_card(tmp_path):
 
 
 @pytest.mark.gpu
+def test_one_rank_nccl_mesh_run_equals_run(tmp_path):
+    """run(mc, mesh=...) on a one-rank NCCL chains mesh follows run(mc) on
+    the card bit for bit (chip_smoke.py's small-parity problem, 2 chains)."""
+    import torch.distributed as dist
+
+    from nngp_tpu_torch.parallel import chains_mesh, initialize_distributed
+
+    dev = _card()
+    locs, y, X = synthetic_heavy_metals(n=400, p=2, seed=5)
+
+    def fit():
+        return nngp_tpu_torch.initialize(
+            locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+            n_chains=2, seed=3, device=dev, verbose=False)
+
+    assert initialize_distributed(f"file://{tmp_path / 'rdzv'}", 1, 0,
+                                  device_type="cuda")
+    try:
+        mesh = chains_mesh()
+        assert (mesh.device_type, dist.get_backend()) == ("cuda", "nccl")
+        a = nngp_tpu_torch.run(fit(), mesh=mesh, **RUN)
+    finally:
+        dist.destroy_process_group()
+    b = nngp_tpu_torch.run(fit(), **RUN)
+    assert a.iterations == b.iterations == 10
+    _assert_same_run(a, b)
+
+
+@pytest.mark.gpu
+def test_dryrun_multichip_one_nccl_rank(capsys):
+    """dryrun_multichip(1) starts one rank that runs the sharded cycle and
+    the collective R-hat over NCCL on the card."""
+    from nngp_tpu_torch.entry import dryrun_multichip
+
+    _card()
+    dryrun_multichip(1)
+    assert "dryrun_multichip OK: 1 x 2 chains (cuda" in capsys.readouterr().out
+
+
+@pytest.mark.gpu
 def test_sweep_parity_preflight_on_card():
     """The bench's preflight at 3 chains: the kernel's zero-noise sweeps of
     chain 0 against the twin's within 2e-3 * max(1, |f|_inf)."""
