@@ -68,7 +68,22 @@ with a nonzero exit and no "ok" line:
                   same R-hat and fit digest, both 2-rank launches the same
                   digest, every rank one sweep-kernel launch an iteration;
                   ms per iteration of each
- 15. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+ 15. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
+                  on the main path's fit: every colour step of both D = 2
+                  owned sub-plans on the fit's sweep inputs, bit for bit
+                  with one launch of the whole plan and within TOL_REL of
+                  the plain version; a 1 x 1 ("chains", "sites") NCCL
+                  mesh runs 25 iterations against run() from the same loaded
+                  fit (0 differing state and record elements; one sweep
+                  kernel launch a colour step, 25 x 10 x 11); two gloo sites
+                  ranks sharing the card (python -m
+                  nngp_tpu_torch.parallel.resume --sites 2, a 1 x 2 mesh)
+                  resume it for 10 iterations: the ranks hold the same fit,
+                  every state element within 1e-3 * max(1, |x|_inf) of run()'s,
+                  each rank's ms per iteration, exchanges and bytes per
+                  iteration and the plan's overlap; then the plan at scale
+                  (host only): 100,000 sites over 8 ranks, overlap < 10 %
+ 16. bench        the bench's path (nngp_tpu_torch/bench.py) through its
                   functions at full width with short fixed windows: the
                   sweep kernel's parity preflight, the 96-chain leg (K = 3,
                   lean records, 100 warmup + 100 timed iterations), the
@@ -79,7 +94,8 @@ with a nonzero exit and no "ok" line:
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's launches from zero and needs exactly one per
-iteration; the bench phase needs one per iteration of its legs plus the
+iteration; halo mode needs one per colour step that has a site of the
+rank; the bench phase needs one per iteration of its legs plus the
 preflight's one.
 
 The line before last is the kernels' JSON; the last line is
@@ -96,6 +112,12 @@ from concurrent.futures import ThreadPoolExecutor
 TOL_REL = 2e-3      # kernel against plain: 2e-3 * max(1, |w|_inf)
 SWEEP_CHAINS = (3, 96)   # the sweep kernel's checks and times (states tiled)
 PARITY_TOL = 1e-3   # card against CPU after 3 iterations, same scaling
+# two sites ranks against run() after 10 iterations: 1e-3 * max(1, |x|_inf)
+# per state field (only the cross-rank sums add in another order)
+HALO_TOL = 1e-3
+STATE_KEYS = ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
+              "field", "tk_ancillary", "tk_sufficient", "prop_mean",
+              "prop_m2", "prop_count")
 # X1 kernel against plain: float32 neighbour sums in another order and
 # rsqrtf, through 600 dependent steps of a linear map whose field grows to
 # ~6e14, so the error is held relative to |w|_inf
@@ -407,9 +429,10 @@ def probe_yardsticks(dev):
     return out
 
 
-def run_counted(mc, n_iterations, **kw):
+def run_counted(mc, n_iterations, per_iteration=1, **kw):
     """``run`` with the sweep kernel's launches counted from zero; fails
-    unless every iteration launched it and every state is finite."""
+    unless every iteration launched it ``per_iteration`` times and every
+    state is finite."""
     import torch
 
     import nngp_tpu_torch
@@ -423,7 +446,7 @@ def run_counted(mc, n_iterations, **kw):
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = sweep.chromatic_sweeps.launches
-    if launches != n_iterations:
+    if launches != n_iterations * per_iteration:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
     if mc.iterations != start + n_iterations:
@@ -527,9 +550,7 @@ def save_load(mc, dev):
         back = nngp_tpu_torch.load(path, device=dev)
         torch.cuda.synchronize()
         load_s = time.perf_counter() - t
-    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
-              "field", "tk_ancillary", "tk_sufficient", "prop_mean",
-              "prop_m2", "prop_count"):
+    for f in STATE_KEYS:
         a, b = getattr(mc.states, f), getattr(back.states, f)
         if b.device != a.device or not torch.equal(a, b):
             raise RuntimeError(f"save/load: state {f} differs")
@@ -563,9 +584,7 @@ def count_differing(a, b):
     import torch
 
     differ, total = 0, 0
-    for f in ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
-              "field", "tk_ancillary", "tk_sufficient", "prop_mean",
-              "prop_m2", "prop_count"):
+    for f in STATE_KEYS:
         x, z = getattr(a.states, f), getattr(b.states, f)
         differ += int((x != z).sum())   # NaN != NaN counts too
         total += x.numel()
@@ -680,6 +699,147 @@ def two_ranks(dev, locs, y, X, td):
     if out["2 x 3"][0]["digest"] != out["2 x 3 again"][0]["digest"]:
         raise RuntimeError("two ranks: a second launch gave other chains")
     return out
+
+
+def halo_one_rank(dev, td):
+    """A 1 x 1 ("chains", "sites") NCCL mesh: the fit ``chains_mesh_parity``
+    saved, loaded twice, run for 25 iterations in halo mode and with run();
+    (differing elements, elements, halo s, run s, halo launches, run
+    launches)."""
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.parallel import halo_mesh, initialize_distributed
+
+    path = os.path.join(td, "fit3.pkl")
+    meshed, plain = (nngp_tpu_torch.load(path, device=dev) for _ in range(2))
+    per = 10 * meshed.graph.n_colors          # one launch a colour step
+    initialize_distributed("file://" + os.path.join(td, "rdzv_halo"), 1, 0,
+                           device_type="cuda")
+    try:
+        mesh = halo_mesh(1)
+        if (mesh.device_type, dist.get_backend()) != ("cuda", "nccl"):
+            raise RuntimeError(f"halo mesh: {mesh.device_type} over "
+                               f"{dist.get_backend()}")
+        for dim in ("chains", "sites"):      # NCCL's communicators, untimed
+            dist.all_reduce(torch.zeros(1, device=dev),
+                            group=mesh[dim].get_group())
+        kw = dict(field_thinning=0.5, verbose=False, covparams_steps=1)
+        meshed, halo_s, launches = run_counted(meshed, 25, per_iteration=per,
+                                               mesh=mesh, **kw)
+        plain, plain_s, plain_launches = run_counted(plain, 25, **kw)
+        differ, total = count_differing(meshed, plain)
+    finally:
+        dist.destroy_process_group()
+    return differ, total, halo_s, plain_s, launches, plain_launches
+
+
+def halo_steps(mc):
+    """Every colour step of both D = 2 owned sub-plans of the fit's graph,
+    on the fit's sweep inputs (3 chains, injected noise), launched in turn
+    on one field as halo mode launches them: held bit for bit against one
+    launch of the whole plan and against the plain version at TOL_REL;
+    (launches, steps a sweep, max abs diff against plain, tol)."""
+    import torch
+
+    from nngp_tpu_torch.experiments import sweep_bench
+    from nngp_tpu_torch.models import gaussian as G
+    from nngp_tpu_torch.ops import sweep
+    from nngp_tpu_torch.ops.covariance import shape_transform
+    from nngp_tpu_torch.ops.vecchia import vecchia_linv
+    from nngp_tpu_torch.parallel.halo import build_halo_plan
+
+    g, st = mc.graph, mc.states
+    linv = vecchia_linv(g, shape_transform(
+        mc.space_time_model["covfun"]["shape_params"], st.shape))
+    q_edges, q_plan, P, rs, scal = G.sweep_inputs(
+        g, mc.data, st, linv, G._mu_obs(mc.data, st, g))
+    noise = torch.randn(st.field.shape[0], sweep_bench.SWEEPS, g.n,
+                        device=st.field.device,
+                        generator=torch.Generator(st.field.device)
+                        .manual_seed(0))
+    args = (q_plan, P, rs, noise, scal, g.color_ptr, g.plan_sites,
+            g.plan_ptr, g.plan_nbr)
+    whole = sweep.chromatic_sweeps_cuda(st.field.clone(), *args)
+    plain = sweep.chromatic_sweeps_reference(st.field.clone(), *args)
+    plan = build_halo_plan(g, 2)
+    subs = [plan.for_rank(d).to(st.field.device).rank.sub for d in range(2)]
+    qs = [q_edges.index_select(1, sub.plan_edge) for sub in subs]
+    steps = sum(b1 > b0 for sub in subs
+                for b0, b1 in zip(sub.bounds, sub.bounds[1:]))
+    w = st.field.clone()
+    sweep.chromatic_sweeps.launches = 0
+    for s_ in range(noise.shape[1]):
+        z = noise[:, s_:s_ + 1].contiguous()
+        for c in range(g.n_colors):
+            for sub, q in zip(subs, qs):
+                sweep.chromatic_sweep_step(w, q, P, rs, z, scal, sub, c)
+    torch.cuda.synchronize()
+    launches = sweep.chromatic_sweeps.launches
+    if launches != noise.shape[1] * steps:
+        raise RuntimeError(f"halo steps: {launches} launches, not "
+                           f"{noise.shape[1]} x {steps}")
+    if not torch.equal(w, whole):
+        raise RuntimeError(f"halo steps: {int((w != whole).sum())} elements "
+                           "differ from one launch of the whole plan")
+    mx = (w - plain).abs().max().item()
+    tol = TOL_REL * max(1.0, plain.abs().max().item())
+    if not mx <= tol:
+        raise RuntimeError(f"halo steps: max abs diff {mx:.3e} against the "
+                           f"plain version > tol {tol:.3e}")
+    return launches, steps, mx, tol
+
+
+def halo_two_ranks(dev, td):
+    """The same fit resumed for 10 iterations by two gloo sites ranks on the
+    card (``parallel.resume --sites 2``) and by run(); (the ranks' JSON
+    lines, the largest scaled state difference, run's ms per
+    iteration)."""
+    import os
+
+    import torch
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.parallel.distributed import launch_local
+    from nngp_tpu_torch.parallel.halo import build_halo_plan
+
+    path, out = os.path.join(td, "fit3.pkl"), os.path.join(td, "halo2.pkl")
+    ranks = [json.loads(text.strip().splitlines()[-1]) for text in
+             launch_local(["-m", "nngp_tpu_torch.parallel.resume", path,
+                           "--iterations", "10", "--mesh-device", "cpu",
+                           "--sites", "2", "--save", out], 2, timeout=400)]
+    plain = nngp_tpu_torch.load(path, device=dev)
+    plan = build_halo_plan(plain.graph, 2)
+    steps = [10 * sum(b1 > b0 for b0, b1 in zip(rk.sub.bounds,
+                                                 rk.sub.bounds[1:]))
+             for rk in plan.ranks]
+    for r in ranks:
+        if r["digest"] != ranks[0]["digest"] or r["sites"] != 2:
+            raise RuntimeError(f"halo two ranks: rank {r['rank']} holds "
+                               "another fit")
+        if r["sweep_launches"] != 10 * steps[r["rank"]]:
+            raise RuntimeError(f"halo two ranks: rank {r['rank']} launched "
+                               f"the sweep kernel {r['sweep_launches']} "
+                               f"times, not {10 * steps[r['rank']]}")
+    plain, plain_s, _ = run_counted(plain, 10, verbose=False)
+    halo = nngp_tpu_torch.load(out, device=dev)
+    if halo.iterations != plain.iterations:
+        raise RuntimeError(f"halo two ranks: {halo.iterations} iterations, "
+                           f"run() {plain.iterations}")
+    worst = 0.0
+    for f in STATE_KEYS:
+        a, b = getattr(halo.states, f), getattr(plain.states, f)
+        if not bool(torch.isfinite(a).all()):
+            raise RuntimeError(f"halo two ranks: non-finite {f}")
+        worst = max(worst, (a - b).abs().max().item()
+                    / max(1.0, b.abs().max().item()))
+    if worst > HALO_TOL:
+        raise RuntimeError(f"halo two ranks: scaled state difference "
+                           f"{worst:.3e} > {HALO_TOL}")
+    return ranks, worst, 1e3 * plain_s / 10
 
 
 def bench_legs(dev):
@@ -930,6 +1090,46 @@ def main():
               "launch gives the same digest "
               f"{ranks['2 x 3'][0]['digest'][:12]}", t)
 
+        t = time.perf_counter()
+        step_launches, steps, step_err, step_tol = halo_steps(mc)
+        print(f"  D = 2 owned sub-plans, every colour step of 10 sweeps on "
+              f"one field ({steps} nonempty steps a sweep, "
+              f"{step_launches} launches): bit for bit with one launch of "
+              f"the whole plan; max abs diff against plain {step_err:.3e} "
+              f"<= tol {step_tol:.3e}", flush=True)
+        differ, total, halo_s, plain_s, halo_launches, plain_launches = \
+            halo_one_rank(dev, td)
+        if differ:
+            raise RuntimeError(f"halo: {differ} of {total} elements differ "
+                               "between a 1 x 1 mesh run and run()")
+        print(f"  1 x 1 NCCL mesh, 25 iterations: {differ} of {total} state "
+              f"and record elements differ from run(); sweep kernel "
+              f"launches {halo_launches} (run(): {plain_launches}); "
+              f"{1e3 * halo_s / 25:.2f} ms/iteration (run(): "
+              f"{1e3 * plain_s / 25:.2f})", flush=True)
+        ranks, worst, plain_ms = halo_two_ranks(dev, td)
+        print("  1 x 2 gloo sites ranks on one card, 10 iterations: " +
+              "; ".join(f"rank {r['rank']} {r['ms_per_iteration']:.2f} "
+                        f"ms/iteration, {r['exchanges_per_iteration']:.1f} "
+                        f"exchanges and "
+                        f"{r['exchange_bytes_per_iteration'] / 2**20:.3f} MiB"
+                        f" sent an iteration, {r['sweep_launches']} sweep "
+                        f"kernel launches" for r in ranks)
+              + f"; overlap {100 * ranks[0]['overlap']:.2f} %; run() "
+              f"{plain_ms:.2f} ms/iteration; same digest "
+              f"{ranks[0]['digest'][:12]}; largest scaled state difference "
+              f"{worst:.3e} <= {HALO_TOL}", flush=True)
+        from nngp_tpu_torch.parallel.halo import halo_plan_check
+
+        big = halo_plan_check()
+        phase("halo", f"D = 2 sub-plan steps bit for bit with the whole "
+              f"launch; 1 x 1 NCCL: {differ} elements differ, "
+              f"{halo_launches} launches in 25 iterations; 1 x 2 gloo: "
+              f"scaled state difference {worst:.3e}; plan at "
+              f"{big['n']}/D={big['D']}: overlap {100 * big['overlap']:.2f} "
+              f"% < 10 % (graph {big['graph_s']:.2f} s, plan "
+              f"{big['plan_s']:.2f} s)", t)
+
     t = time.perf_counter()
     result, legs, bench_launches = bench_legs(dev)
     check_bench_line(result)
@@ -957,7 +1157,10 @@ def main():
         "launches": launches, "max_abs_err": kv["max_abs_err"],
         "ms": kv[3]["ms"], "plain_ms": kv[3]["plain_ms"],
         "bound_ms": kv[3]["bound_ms"], "bound_by": kv[3]["bound_by"],
-        "library_ms": None}] + [
+        "library_ms": None,
+        "halo": f"halo mode launches it once a colour step a rank: "
+                f"{halo_launches} launches in 25 iterations of a 1 x 1 mesh"}
+        ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))
     print(smi)

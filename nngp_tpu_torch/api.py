@@ -19,7 +19,7 @@ import functools
 import json
 import os
 import time
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, field, replace
 
 import numpy as np
 import torch
@@ -64,6 +64,9 @@ class MCMC:
     setup_timings: dict
     # active lean-record column set (None = full-field records)
     field_record_columns: tuple | None = None
+    # this rank's part of the halo plan, by (sites ranks, sites rank), on
+    # ``device`` (run(mesh=...))
+    halo_plans: dict = field(default_factory=dict, repr=False)
 
     @property
     def iterations(self) -> int:
@@ -336,6 +339,19 @@ def _cycle_generator(mc: MCMC, cycle_start: int, lo: int = 0
     return gen
 
 
+def _halo_plan(mc: MCMC, sites):
+    """This rank's part of the fit's halo plan over the ``sites`` mesh
+    dimension, on the fit's device (built once; only this rank's tables
+    reach the device)."""
+    key = (sites.size(), sites.get_local_rank())
+    if key not in mc.halo_plans:
+        from nngp_tpu_torch.parallel.halo import build_halo_plan
+
+        mc.halo_plans[key] = build_halo_plan(mc.graph, key[0]).for_rank(
+            key[1]).to(mc.device)
+    return mc.halo_plans[key]
+
+
 def _set_record_columns(mc: MCMC, field_record_columns):
     """Validate/apply the lean-record column set; returns the column tuple
     (None = full field).  The recorded column identities may not change
@@ -422,16 +438,33 @@ def run(
     the whole fit and takes the same early-stop decision.  Rank r draws
     from the stream of (seed, cycle start, lo): a mesh of one rank gives
     the chains of ``run`` without a mesh bit for bit, and a mesh of k ranks
-    gives chains that depend on (seed, k) only.  Only the rank holding
-    chain 0 prints and writes ``plot_trace``, ``log_jsonl`` and
-    ``save_name``."""
+    gives chains that depend on (seed, k) only.
+
+    A ``("chains", "sites")`` mesh (``parallel.halo_mesh``) is halo mode:
+    the chains are sharded over its "chains" dimension as above, and each
+    chains block's iteration is sharded by sites over its "sites" ranks
+    (``parallel/halo_gibbs.py``), which all draw the block's stream.  The
+    plan is built once per sites rank and kept on ``mc``.  A
+    1 x 1 mesh gives ``run``'s chains bit for bit; more sites ranks change
+    only the order in which the cross-rank sums add.
+    ``field_record_columns`` is refused there.  Only the rank holding chain
+    0 (and sites part 0) prints and writes ``plot_trace``, ``log_jsonl``
+    and ``save_name``."""
     _full_f32_matmuls()
-    lo = 0
+    lo, halo = 0, False
     if mesh is not None:
+        from nngp_tpu_torch.parallel.chains import SITES_AXIS
         from nngp_tpu_torch.parallel.distributed import local_chain_slice
 
+        halo = SITES_AXIS in (mesh.mesh_dim_names or ())
+        if halo and field_record_columns is not None:
+            raise ValueError(
+                "field_record_columns is not supported in halo (sites-"
+                "sharded) mode: record columns are global site indices "
+                "while each device holds a local field shard"
+            )
         lo, _ = local_chain_slice(mc.n_chains, mesh)
-    writes = lo == 0
+    writes = lo == 0 and (not halo or mesh[SITES_AXIS].get_local_rank() == 0)
     verbose = verbose and writes
     cfg = UpdateConfig(
         n_iterations=int(n_iterations_update),
@@ -452,6 +485,11 @@ def run(
     cfg = replace(cfg, n_saved=len(saved))
     if mesh is None:
         cycle_fn = functools.partial(run_cycle, mc.graph, mc.data, cfg)
+    elif halo:
+        from nngp_tpu_torch.parallel.halo_gibbs import make_halo_cycle_fn
+
+        cycle_fn = make_halo_cycle_fn(mc.graph, mc.data, cfg, mesh,
+                                      _halo_plan(mc, mesh[SITES_AXIS]))
     else:
         from nngp_tpu_torch.parallel.chains import make_sharded_cycle_fn
 

@@ -6,11 +6,14 @@
 - ``dryrun_multichip(n_devices, device_type=None)``: one sharded 8-iteration
   cycle with two chains per rank on a chains mesh of ``n_devices`` ranks,
   then the collective Gelman-Rubin-Brooks reduction over the ranks' own
-  chains, which must give a finite R-hat of shape (4,).  Called inside a
-  process group of that size it runs this rank's part; otherwise it
-  starts ``n_devices`` local ranks (``launch_local``).  The halo (chains x
-  sites) and halo-plan parts of ``__graft_entry__.dryrun_multichip`` wait
-  for the port of halo mode.
+  chains, which must give a finite R-hat of shape (4,).  With an even
+  ``n_devices`` >= 4, halo mode: one 4-iteration cycle of 4 chains on a
+  2 x (n_devices / 2) ``("chains", "sites")`` mesh, records finite.  With
+  ``n_devices`` >= 8, the halo plan at scale (host only,
+  ``parallel/halo.py:halo_plan_check``): 100,000 sites over 8 ranks with an
+  overlap under 10 %.  Called inside a process group of that size it runs
+  this rank's part; otherwise it starts ``n_devices`` local ranks
+  (``launch_local``).
 
     python -m nngp_tpu_torch.entry [--device cuda|cpu] [--dryrun N]
 """
@@ -87,8 +90,28 @@ def _dryrun_rank(n_devices: int, device_type: str) -> dict:
     r_hat = make_collective_grb_fn(mesh, n_chains)(samples).cpu().numpy()
     if r_hat.shape != (4,) or not np.isfinite(r_hat).all():
         raise RuntimeError(f"dryrun_multichip: R-hat {r_hat}")
-    return {"rank": mesh.get_rank(), "chains": [lo, hi],
-            "r_hat": r_hat.tolist()}
+    out = {"rank": mesh.get_rank(), "chains": [lo, hi],
+           "r_hat": r_hat.tolist()}
+    if n_devices >= 4 and n_devices % 2 == 0:
+        out["halo"] = _dryrun_halo(n_devices, device_type)
+    return out
+
+
+def _dryrun_halo(n_devices: int, device_type: str) -> list:
+    """Halo mode on a 2 x (n_devices / 2) mesh: 4 chains of the 64-site toy
+    (seed 3), one cycle of 4 iterations and 2 sweeps; returns the mesh
+    shape."""
+    import nngp_tpu_torch
+    from nngp_tpu_torch.parallel import halo_mesh
+
+    mesh = halo_mesh(n_devices // 2, device_type)
+    mc = _toy_problem(n=64, n_chains=4, m=3, seed=3, device=device_type)
+    mc = nngp_tpu_torch.run(mc, n_iterations_update=4, n_chromatic=2,
+                            mesh=mesh, verbose=False)
+    if not all(np.isfinite(r["log_scale"]).all() for r in mc.records):
+        raise RuntimeError("dryrun_multichip halo: non-finite log_scale "
+                           "records")
+    return list(mesh.shape)
 
 
 def dryrun_multichip(n_devices: int, device_type: str | None = None) -> None:
@@ -112,6 +135,15 @@ def dryrun_multichip(n_devices: int, device_type: str | None = None) -> None:
                                f"{[o['r_hat'] for o in out]}")
     print(f"dryrun_multichip OK: {n_devices} x 2 chains ({device_type} "
           f"ranks), R-hat head {np.round(out[0]['r_hat'][:2], 3)}")
+    if "halo" in out[0]:
+        print("dryrun_multichip halo OK: {} x {} (chains x sites) mesh"
+              .format(*out[0]["halo"]))
+    if n_devices >= 8:
+        from nngp_tpu_torch.parallel.halo import halo_plan_check
+
+        c = halo_plan_check()
+        print(f"dryrun_multichip halo-plan OK: {c['n']}/D={c['D']} overlap "
+              f"{c['overlap'] * 100:.2f}% < 10%")
 
 
 def main(argv=None) -> int:

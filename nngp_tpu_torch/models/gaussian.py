@@ -260,15 +260,44 @@ def _where(accept, new, old):
                        new, old)
 
 
+def _propose(cfg, state, tk, C, z):
+    """The joint (log_scale, shape) proposal with step sizes ``tk``:
+    (new log_scale, new sampled shape, new natural shape)."""
+    innov = _mh_innovation(tk, C, z)
+    new_ls = state.log_scale + innov[:, 0]
+    new_shape = state.shape + innov[:, 1:]
+    return new_ls, new_shape, _natural_shape(cfg, new_shape)
+
+
+def _accept(cfg, data, state, linv, proposal, new_linv, ratio, u,
+            new_field=None):
+    """The MH decision on a (log_scale, shape) ``proposal``: accepted where
+    the log ratio beats log(u) inside the full support box, var(y) cap
+    included (ref :167); returns (state, linv, accept as 0/1), the field
+    moved to ``new_field`` where accepted when one is given."""
+    new_ls, new_shape, natural_new = proposal
+    accept = (_range_support(cfg, data, natural_new, new_shape)
+              & _scale_support(data, new_ls)
+              & (torch.exp(new_ls) < data.var_y)
+              & (ratio > torch.log(u)))
+    moved = {} if new_field is None else {
+        "field": _where(accept, new_field, state.field)}
+    state = replace(
+        state,
+        log_scale=_where(accept, new_ls, state.log_scale),
+        shape=_where(accept, new_shape, state.shape),
+        **moved,
+    )
+    return state, _where(accept, new_linv, linv), accept.to(linv.dtype)
+
+
 def _ancillary_step(graph, data, cfg, state, linv, mu, z, u, C=None):
     """Block 1: joint MH on (log_scale, shape) with the whitened field held
     fixed: w_new = beta_0 + e^{(ls'-ls)/2} L_new^-1 L_old (w - beta_0)
     (ref :127); the ratio is the observation log-likelihood difference
     (ref :129-133).  Subject to the full support box, var(y) cap included."""
-    innov = _mh_innovation(state.tk_ancillary, C, z)
-    new_ls = state.log_scale + innov[:, 0]
-    new_shape = state.shape + innov[:, 1:]
-    natural_new = _natural_shape(cfg, new_shape)
+    proposal = _propose(cfg, state, state.tk_ancillary, C, z)
+    new_ls, _, natural_new = proposal
     new_linv = vecchia_linv(graph, natural_new)
     v = linv_mult(linv, state.field - state.beta_0[:, None], graph)
     new_field = state.beta_0[:, None] + torch.exp(
@@ -276,41 +305,21 @@ def _ancillary_step(graph, data, cfg, state, linv, mu, z, u, C=None):
     prec = torch.exp(-state.log_noise_variance)
     llr = -0.5 * prec * _obs_sse_diff(data, new_field, state.field, mu,
                                       state.beta_0, graph)
-    accept = (_range_support(cfg, data, natural_new, new_shape)
-              & _scale_support(data, new_ls)
-              & (torch.exp(new_ls) < data.var_y)
-              & (llr > torch.log(u)))
-    state = replace(
-        state,
-        log_scale=_where(accept, new_ls, state.log_scale),
-        shape=_where(accept, new_shape, state.shape),
-        field=_where(accept, new_field, state.field),
-    )
-    return state, _where(accept, new_linv, linv), accept.to(linv.dtype)
+    return _accept(cfg, data, state, linv, proposal, new_linv, llr, u,
+                   new_field=new_field)
 
 
 def _sufficient_step(graph, data, cfg, state, linv, z, u, C=None):
     """Block 2: joint MH on (log_scale, shape) with the field fixed; the
     ratio is the Vecchia prior log-density difference (ref :160-213),
     subject to exp(log_scale') < var(y) (ref :167) and the support box."""
-    innov = _mh_innovation(state.tk_sufficient, C, z)
-    new_ls = state.log_scale + innov[:, 0]
-    new_shape = state.shape + innov[:, 1:]
-    natural_new = _natural_shape(cfg, new_shape)
+    proposal = _propose(cfg, state, state.tk_sufficient, C, z)
+    new_ls, _, natural_new = proposal
     new_linv = vecchia_linv(graph, natural_new)
     w0 = state.field - state.beta_0[:, None]
     gp_ratio = nngp_loglik_diff(new_linv, new_ls, linv, state.log_scale, w0,
                                 graph)
-    accept = ((torch.exp(new_ls) < data.var_y)
-              & _scale_support(data, new_ls)
-              & _range_support(cfg, data, natural_new, new_shape)
-              & (gp_ratio > torch.log(u)))
-    state = replace(
-        state,
-        log_scale=_where(accept, new_ls, state.log_scale),
-        shape=_where(accept, new_shape, state.shape),
-    )
-    return state, _where(accept, new_linv, linv), accept.to(linv.dtype)
+    return _accept(cfg, data, state, linv, proposal, new_linv, gp_ratio, u)
 
 
 def _beta_step(graph, data, cfg, state, linv, draws: IterationDraws):
@@ -413,7 +422,11 @@ def _noise_steps(graph, data, cfg, state, mu, z, u):
     """Block 5: cfg.noise_steps MH moves on log_noise_variance with proposal
     sd 0.01 and support exp(.) < var(y) (ref :277-293)."""
     sse = _obs_sse(data, state.field, mu, state.beta_0, graph)
-    n_obs = graph.n_obs
+    return _noise_mh(data, cfg, state, sse, graph.n_obs, z, u)
+
+
+def _noise_mh(data, cfg, state, sse, n_obs, z, u):
+    """The noise MH moves given the observation SSE [C]."""
     lnv = state.log_noise_variance
     for i in range(cfg.noise_steps):
         innov = z[:, i] * 0.01
@@ -456,9 +469,6 @@ def gibbs_iteration(graph, data, cfg: UpdateConfig, carry, it: int,
     state, linv, acc_anc, acc_suf = carry
     mu = _mu_obs(data, state, graph)
     C = _proposal_chol(state)
-    am_active = (torch.zeros_like(state.log_scale, dtype=torch.bool)
-                 if state.prop_mean is None
-                 else state.prop_count >= _AM_MIN_COUNT)
     for rep in range(max(1, cfg.covparams_steps)):
         if cfg.ancillary:
             state, linv, a = _ancillary_step(graph, data, cfg, state, linv, mu,
@@ -469,28 +479,8 @@ def gibbs_iteration(graph, data, cfg: UpdateConfig, carry, it: int,
                                           draws.suf_z[rep], draws.suf_u[rep],
                                           C=C)
         acc_suf = acc_suf + a
-
-    # adaptation every adapt_window iterations while the cycle starts early
-    # enough (ref :153); acceptance counts covparams_steps moves/iteration
-    if (it + 1) % cfg.adapt_window == 0:
-        window = cfg.adapt_window * max(1, cfg.covparams_steps)
-        enabled = iter_start <= cfg.adapt_until
-        state = replace(
-            state,
-            tk_ancillary=_adapt(state.tk_ancillary, acc_anc,
-                                draws.adapt_z[:, 0], enabled, 0.4, window,
-                                am_active),
-            tk_sufficient=_adapt(state.tk_sufficient, acc_suf,
-                                 draws.adapt_z[:, 1], enabled, 0.2, window,
-                                 am_active),
-        )
-        acc_anc = torch.zeros_like(acc_anc)
-        acc_suf = torch.zeros_like(acc_suf)
-    # AM moments accumulate from the start and restart at adapt_until/2 and
-    # at adapt_until (see nngp_tpu's _pre_chromatic)
-    gi = iter_start + it
-    state = _am_update(state, reset=gi in (cfg.adapt_until // 2,
-                                           cfg.adapt_until))
+    state, acc_anc, acc_suf = _adapt_and_am(cfg, state, acc_anc, acc_suf, it,
+                                            iter_start, draws.adapt_z)
 
     state = _beta_step(graph, data, cfg, state, linv, draws)
     mu = _mu_obs(data, state, graph)
@@ -500,11 +490,42 @@ def gibbs_iteration(graph, data, cfg: UpdateConfig, carry, it: int,
     return (state, linv, acc_anc, acc_suf)
 
 
+def _adapt_and_am(cfg, state, acc_anc, acc_suf, it, iter_start, adapt_z):
+    """The step-size adaptation and the AM moments after the MH pairs of
+    iteration ``it``: (state, acc_anc, acc_suf)."""
+    # AM is active from the moments the iteration started with (only
+    # _am_update, below, changes them)
+    am_active = (torch.zeros_like(state.log_scale, dtype=torch.bool)
+                 if state.prop_mean is None
+                 else state.prop_count >= _AM_MIN_COUNT)
+    # adaptation every adapt_window iterations while the cycle starts early
+    # enough (ref :153); acceptance counts covparams_steps moves/iteration
+    if (it + 1) % cfg.adapt_window == 0:
+        window = cfg.adapt_window * max(1, cfg.covparams_steps)
+        enabled = iter_start <= cfg.adapt_until
+        state = replace(
+            state,
+            tk_ancillary=_adapt(state.tk_ancillary, acc_anc, adapt_z[:, 0],
+                                enabled, 0.4, window, am_active),
+            tk_sufficient=_adapt(state.tk_sufficient, acc_suf, adapt_z[:, 1],
+                                 enabled, 0.2, window, am_active),
+        )
+        acc_anc = torch.zeros_like(acc_anc)
+        acc_suf = torch.zeros_like(acc_suf)
+    # AM moments accumulate from the start and restart at adapt_until/2 and
+    # at adapt_until (see nngp_tpu's _pre_chromatic)
+    gi = iter_start + it
+    state = _am_update(state, reset=gi in (cfg.adapt_until // 2,
+                                           cfg.adapt_until))
+    return state, acc_anc, acc_suf
+
+
 RECORD_KEYS = ("beta_0", "beta", "log_scale", "log_noise_variance", "shape")
 
 
 def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
-              gen: torch.Generator, iter_start: int, saved_slots=None):
+              gen: torch.Generator, iter_start: int, saved_slots=None,
+              iteration=gibbs_iteration, factor=vecchia_linv):
     """cfg.n_iterations iterations of every chain (one mclapply worker body
     per chain, ref :27-315): returns (state, records) with the records on
     the device, iterations leading ([T, C, ...]; "field" [n_saved, C, w]).
@@ -512,7 +533,10 @@ def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
     ``saved_slots`` (host ints [n_iterations], values in [0, cfg.n_saved])
     routes each iteration's field snapshot to a record row; the value
     cfg.n_saved drops it.  None records every iteration.  The Vecchia
-    factor is rebuilt from the current state at cycle start (ref :67-74)."""
+    factor is rebuilt from the current state at cycle start (ref :67-74).
+    ``iteration`` and ``factor`` (signatures of ``gibbs_iteration`` and
+    ``vecchia_linv``) are the iteration and the factor build: halo mode
+    passes its sharded ones."""
     T = cfg.n_iterations
     C, n = state.field.shape
     p = state.beta.shape[1]
@@ -527,12 +551,12 @@ def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
     width = n if cols is None else len(cfg.field_cols)
     fbuf = torch.empty(n_saved, C, width, dtype=dt, device=dev)
 
-    linv = vecchia_linv(graph, _natural_shape(cfg, state.shape))
+    linv = factor(graph, _natural_shape(cfg, state.shape))
     zero = torch.zeros_like(state.log_scale)
     carry = (state, linv, zero, zero)
     for it in range(T):
         draws = IterationDraws.draw(gen, cfg, C, n, p, dev, dt)
-        carry = gibbs_iteration(graph, data, cfg, carry, it, iter_start, draws)
+        carry = iteration(graph, data, cfg, carry, it, iter_start, draws)
         state = carry[0]
         for k in RECORD_KEYS:
             rec[k][it] = getattr(state, k)

@@ -25,6 +25,12 @@ order of the graph's sweep plan (``preprocess/coloring.py:sweep_plan``):
 
 The kernel walks a lane table (``lane_table``) that this module builds from
 the plan once per ``plan_ptr`` tensor, with the kernel's entries a lane.
+
+``chromatic_sweep_step`` runs one colour step of one sweep on a
+``SubPlan``, a rank's positions of the plan (halo mode,
+``parallel/halo.py``): the same kernel, launched with one sweep, one
+colour and the two lane offsets of that colour, so that a halo exchange
+can sit between colour steps.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -219,3 +226,54 @@ def chromatic_sweeps(w, q_plan, P, rs, noise, scal, color_ptr, plan_sites,
 
 
 chromatic_sweeps.launches = 0
+
+
+@dataclass(frozen=True)
+class SubPlan:
+    """Some positions of a sweep plan as a plan of their own
+    (``preprocess/coloring.py:owned_sweep_plan``): the plan's arrays, with
+    ``bounds``, the host copy of ``color_ptr``, so that a step knows
+    without a device read whether its colour has a position."""
+
+    bounds: tuple                 # host ints [n_colors+1]
+    color_ptr: object             # i32 [n_colors+1]
+    plan_sites: object            # i32 [k]
+    plan_ptr: object              # i32 [k+1]
+    plan_nbr: object              # i32 [nnz_k]
+    plan_edge: object             # i32 [nnz_k]
+
+    @classmethod
+    def of(cls, color_ptr, plan_sites, plan_ptr, plan_nbr, plan_edge):
+        return cls(tuple(int(v) for v in np.asarray(color_ptr)), color_ptr,
+                   plan_sites, plan_ptr, plan_nbr, plan_edge)
+
+    def to(self, device) -> "SubPlan":
+        return SubPlan(self.bounds, *(
+            torch.as_tensor(np.asarray(getattr(self, k)), device=device)
+            for k in ("color_ptr", "plan_sites", "plan_ptr", "plan_nbr",
+                      "plan_edge")))
+
+
+def chromatic_sweep_step(w, q_plan, P, rs, noise_s, scal, sub_plan, c):
+    """Colour c of one sweep over the positions of ``sub_plan``, in place on
+    ``w`` [C, n]: ``q_plan`` [C, nnz] is Q in the sub-plan's order, ``P``
+    and ``rs`` [C, n] are read at its sites, ``noise_s`` [C, 1, n] holds
+    the sweep's normals.  On a CUDA tensor one launch of the kernel with
+    S = 1 and the colour's two lane offsets ``lane_ptr[c:c+2]`` (the
+    kernel reads them as offsets into the sub-plan's lane table); on a CPU
+    tensor the plain version on the same colour.  A colour with no
+    position launches nothing.  Each site gets the bits of the full plan's
+    step: it keeps its degree, its lane group and its CSR order."""
+    if sub_plan.bounds[c] == sub_plan.bounds[c + 1]:
+        return w
+    if w.device.type == "cuda":
+        lane_ptr, lane_tab = lanes(sub_plan.color_ptr, sub_plan.plan_sites,
+                                   sub_plan.plan_ptr)
+        return launch(w, q_plan, P, rs, noise_s, scal, sub_plan.plan_nbr,
+                      lane_ptr[c:c + 2], lane_tab)
+    if w.device.type == "cpu":
+        return chromatic_sweeps_reference(
+            w, q_plan, P, rs, noise_s, scal, sub_plan.color_ptr[c:c + 2],
+            sub_plan.plan_sites, sub_plan.plan_ptr, sub_plan.plan_nbr)
+    raise ValueError(f"chromatic_sweep_step: no implementation for "
+                     f"{w.device}")

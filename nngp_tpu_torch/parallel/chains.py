@@ -28,6 +28,7 @@ from nngp_tpu_torch.models.gaussian import ChainState, run_cycle
 from nngp_tpu_torch.parallel.collectives import on_wire
 
 CHAINS_AXIS = "chains"
+SITES_AXIS = "sites"    # halo mode (parallel/halo.py)
 
 
 def chains_mesh(device_type: str | None = None,
@@ -85,23 +86,32 @@ def gather_chains(parts, mesh) -> list:
     return out
 
 
-def make_sharded_cycle_fn(graph, data, cfg, mesh):
-    """``run_cycle`` with the chains sharded over ``mesh``.
+def chains_submesh(mesh):
+    """The "chains" dimension of ``mesh``: the mesh itself when it is 1-D,
+    ``mesh["chains"]`` of a ``("chains", "sites")`` mesh."""
+    names = tuple(mesh.mesh_dim_names or ())
+    return mesh[CHAINS_AXIS] if len(names) > 1 else mesh
+
+
+def make_sharded_cycle_fn(graph, data, cfg, mesh, cycle=run_cycle):
+    """``cycle`` (``run_cycle`` by default) with the chains sharded over
+    ``mesh`` (its "chains" dimension).
 
     ``call(states, gen, iter_start, saved_slots=None)`` takes every chain's
     states (as every rank holds them), advances this rank's chains with
     ``gen`` (the stream of this rank's chains), and returns (states,
-    records) of every chain, gathered from every rank, in ``run_cycle``'s
-    layout (records iterations leading, chains second)."""
+    records) of every chain, gathered from every chains block, in
+    ``run_cycle``'s layout (records iterations leading, chains second)."""
+    chains = chains_submesh(mesh)
 
     def call(states, gen, iter_start, saved_slots=None):
-        local, recs = run_cycle(graph, data, cfg, shard_states(states, mesh),
-                                gen, iter_start, saved_slots=saved_slots)
+        local, recs = cycle(graph, data, cfg, shard_states(states, mesh),
+                            gen, iter_start, saved_slots=saved_slots)
         names = [f.name for f in fields(local)
                  if getattr(local, f.name) is not None]
         keys = list(recs)
         out = gather_chains([(getattr(local, k), 0) for k in names]
-                            + [(recs[k], 1) for k in keys], mesh)
+                            + [(recs[k], 1) for k in keys], chains)
         return (replace(local, **dict(zip(names, out))),
                 dict(zip(keys, out[len(names):])))
 

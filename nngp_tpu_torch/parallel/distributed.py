@@ -26,7 +26,8 @@ import time
 import torch
 import torch.distributed as dist
 
-from nngp_tpu_torch.parallel.chains import CHAINS_AXIS, chains_mesh
+from nngp_tpu_torch.parallel.chains import (CHAINS_AXIS, SITES_AXIS,
+                                            chains_mesh, chains_submesh)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -93,24 +94,26 @@ def global_chains_mesh():
 
 def local_chain_slice(n_chains_total: int, mesh=None):
     """The ``[lo, hi)`` chain range this rank owns when ``n_chains_total``
-    chains are sharded over ``mesh``: contiguous and rank-major, the layout
-    ``shard_states`` takes.  Uneven chains raise ValueError; a mesh with a
-    "sites" dimension raises NotImplementedError (halo mode)."""
+    chains are sharded over ``mesh``, a 1-D "chains" mesh or a ``("chains",
+    "sites")`` mesh (halo mode; the chains coordinate picks the block, and
+    every sites rank of a block owns its chains): contiguous and
+    block-major, the layout ``shard_states`` takes.  Uneven chains or
+    another mesh raise ValueError."""
     if mesh is None:
         mesh = global_chains_mesh()
     names = tuple(mesh.mesh_dim_names or ())
-    if "sites" in names:
-        raise NotImplementedError("halo mode: M10")
-    if names != (CHAINS_AXIS,):
-        raise ValueError(f"expected a 1-D {CHAINS_AXIS!r} mesh, got "
+    if names not in ((CHAINS_AXIS,), (CHAINS_AXIS, SITES_AXIS)):
+        raise ValueError(f"expected a 1-D {CHAINS_AXIS!r} mesh or a "
+                         f"({CHAINS_AXIS!r}, {SITES_AXIS!r}) mesh, got "
                          f"dimensions {names}")
-    world = mesh.size()
+    chains = chains_submesh(mesh)
+    world = chains.size()
     if n_chains_total % world != 0:
         raise ValueError(
             f"n_chains={n_chains_total} must be divisible by the chains "
             f"mesh axis ({world})")
     per = n_chains_total // world
-    rank = mesh.get_local_rank()
+    rank = chains.get_local_rank()
     return rank * per, (rank + 1) * per
 
 

@@ -178,6 +178,29 @@ def sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge):
             nbr_edge[plan_sites][real].astype(np.int32))
 
 
+def owned_sweep_plan(color_ptr, plan_sites, plan_ptr, plan_nbr, plan_edge,
+                     owned):
+    """The positions of a sweep plan whose sites ``owned`` (bool [n]) marks,
+    as a plan of their own: (color_ptr, plan_sites, plan_ptr, plan_nbr,
+    plan_edge), all i32.  The positions keep the plan's order, so each
+    colour stays sorted by degree and each site keeps its neighbours in
+    their CSR order; the CSR is compacted to the kept rows."""
+    color_ptr = np.asarray(color_ptr, dtype=np.int64)
+    plan_sites = np.asarray(plan_sites, dtype=np.int64)
+    plan_ptr = np.asarray(plan_ptr, dtype=np.int64)
+    keep = np.asarray(owned, dtype=bool)[plan_sites]
+    colour = np.repeat(np.arange(len(color_ptr) - 1), np.diff(color_ptr))
+    counts = np.bincount(colour[keep], minlength=len(color_ptr) - 1)
+    deg = np.diff(plan_ptr)
+    entries = np.repeat(keep, deg)
+    i32 = np.int32
+    return (np.concatenate([[0], np.cumsum(counts)]).astype(i32),
+            plan_sites[keep].astype(i32),
+            np.concatenate([[0], np.cumsum(deg[keep])]).astype(i32),
+            np.asarray(plan_nbr)[entries].astype(i32),
+            np.asarray(plan_edge)[entries].astype(i32))
+
+
 def dag_levels(NNarray: np.ndarray) -> np.ndarray:
     """Topological depth of each site in the Vecchia DAG.
 

@@ -38,17 +38,22 @@ def _mc(device):
         n_chains=C, seed=4, device=device, verbose=False)
 
 
+def _tiled(mc, C_run):
+    """(state, linv, mu) of ``mc``'s states tiled to ``C_run`` chains."""
+    from nngp_tpu_torch.experiments.sweep_bench import tile_states
+
+    st = tile_states(mc.states, C_run)
+    names = mc.space_time_model["covfun"]["shape_params"]
+    return (st, vecchia_linv(mc.graph, shape_transform(names, st.shape)),
+            G._mu_obs(mc.data, st, mc.graph))
+
+
 def _sweep_inputs(mc, C_run, S=6, zero_noise=False):
     """The kernel's arguments on ``mc``'s graph with its states tiled to
     ``C_run`` chains: (w0, args after w)."""
-    from nngp_tpu_torch.experiments.sweep_bench import tile_states
-
     g = mc.graph
-    st = tile_states(mc.states, C_run)
-    names = mc.space_time_model["covfun"]["shape_params"]
-    linv = vecchia_linv(g, shape_transform(names, st.shape))
-    _, q_plan, P, rs, scal = G.sweep_inputs(g, mc.data, st, linv,
-                                            G._mu_obs(mc.data, st, g))
+    st, linv, mu = _tiled(mc, C_run)
+    _, q_plan, P, rs, scal = G.sweep_inputs(g, mc.data, st, linv, mu)
     dev = st.field.device
     noise = torch.randn(C_run, S, g.n, device=dev,
                         generator=torch.Generator(dev).manual_seed(1))
@@ -383,6 +388,129 @@ def test_one_rank_nccl_mesh_run_equals_run(tmp_path):
     b = nngp_tpu_torch.run(fit(), **RUN)
     assert a.iterations == b.iterations == 10
     _assert_same_run(a, b)
+
+
+@pytest.mark.gpu
+def test_one_by_one_nccl_halo_run_equals_run(tmp_path):
+    """run(mc, mesh=...) on a 1 x 1 ("chains", "sites") NCCL mesh (halo
+    mode: one sweep-kernel launch a colour step on the whole plan) follows
+    run(mc) on the card bit for bit, 400 sites, 2 chains."""
+    import torch.distributed as dist
+
+    from nngp_tpu_torch.parallel import halo_mesh, initialize_distributed
+
+    dev = _card()
+    locs, y, X = synthetic_heavy_metals(n=400, p=2, seed=5)
+
+    def fit():
+        return nngp_tpu_torch.initialize(
+            locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+            n_chains=2, seed=3, device=dev, verbose=False)
+
+    assert initialize_distributed(f"file://{tmp_path / 'rdzv'}", 1, 0,
+                                  device_type="cuda")
+    try:
+        mesh = halo_mesh(1)
+        assert (mesh.device_type, dist.get_backend()) == ("cuda", "nccl")
+        a = fit()
+        before = sweep.chromatic_sweeps.launches
+        a = nngp_tpu_torch.run(a, mesh=mesh, **RUN)
+        torch.cuda.synchronize()
+        launches = sweep.chromatic_sweeps.launches - before
+    finally:
+        dist.destroy_process_group()
+    b = nngp_tpu_torch.run(fit(), **RUN)
+    assert a.iterations == b.iterations == 10
+    assert launches == 10 * 10 * a.graph.n_colors
+    _assert_same_run(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3])
+def test_sub_plan_steps_equal_the_full_launch(chains):
+    """The kernel launched once a colour step on owned sub-plans (halo mode,
+    2 ranks' sub-plans on one field, in turn) gives the bits of one launch
+    of every sweep on the whole plan; one step on one rank's sub-plan gives
+    the whole plan's step at that rank's sites and leaves the others."""
+    from nngp_tpu_torch.parallel.halo import build_halo_plan
+
+    dev = _card()
+    mc = _mc(dev)
+    g = mc.graph
+    w0, args = _sweep_inputs(mc, chains, S=3)
+    q_plan, P, rs, noise, scal = args[:5]
+    want = sweep.chromatic_sweeps(w0.clone(), *args)
+    plan = build_halo_plan(g, 2)
+    subs = [plan.for_rank(d).to(dev).rank.sub for d in range(2)]
+    full = build_halo_plan(g, 1).for_rank(0).to(dev).rank.sub
+    q_edges = G.sweep_inputs(g, mc.data, *_tiled(mc, chains))[0]
+    qs = [q_edges.index_select(1, sub.plan_edge) for sub in subs]
+    w = w0.clone()
+    before = sweep.chromatic_sweeps.launches
+    for s in range(noise.shape[1]):
+        z = noise[:, s:s + 1].contiguous()
+        for c in range(g.n_colors):
+            for sub, q in zip(subs, qs):
+                sweep.chromatic_sweep_step(w, q, P, rs, z, scal, sub, c)
+    torch.cuda.synchronize()
+    steps = sum(b1 > b0 for sub in subs
+                for b0, b1 in zip(sub.bounds, sub.bounds[1:]))
+    assert sweep.chromatic_sweeps.launches == before + noise.shape[1] * steps
+    assert torch.equal(w, want)
+    # one colour step: rank 1's sub-plan against the whole plan's
+    z = noise[:, :1].contiguous()
+    c = 1
+    one, whole = w0.clone(), w0.clone()
+    sweep.chromatic_sweep_step(one, qs[1], P, rs, z, scal, subs[1], c)
+    sweep.chromatic_sweep_step(whole, q_edges.index_select(
+        1, full.plan_edge), P, rs, z, scal, full, c)
+    sub = subs[1]
+    sites = sub.plan_sites[sub.bounds[c]:sub.bounds[c + 1]].long()
+    changed = torch.zeros(g.n, dtype=torch.bool, device=dev)
+    changed[sites] = True
+    assert torch.equal(one[:, changed], whole[:, changed])
+    assert torch.equal(one[:, ~changed], w0[:, ~changed])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sites", [2, 4])
+def test_halo_over_cards_matches_run(tmp_path, sites):
+    """Halo mode over NCCL, one card a sites rank (the exchange on the
+    cards): the Heavy-metals fit at full width (3 chains) resumed for 2
+    cycles of 10 iterations by ``parallel.resume --sites D`` on a 1 x D
+    mesh, against run() of the same fit: every state element within 1e-3
+    * max(1, |x|_inf) (only the cross-rank sums add in another order).
+    Prints the ranks' JSON lines (ms per iteration, each cycle's seconds:
+    the first builds NCCL's communicators, exchanges, bytes sent)."""
+    import json
+
+    from nngp_tpu_torch.parallel.distributed import launch_local
+
+    dev = _card()
+    if torch.cuda.device_count() < sites:
+        pytest.skip(f"needs {sites} CUDA cards")
+    locs, y, X = synthetic_heavy_metals()
+    fit, out = str(tmp_path / "fit.pkl"), str(tmp_path / "halo.pkl")
+    nngp_tpu_torch.save(nngp_tpu_torch.initialize(
+        locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+        n_chains=3, seed=1, device=dev, verbose=False), fit)
+    lines = [json.loads(t.strip().splitlines()[-1]) for t in launch_local(
+        ["-m", "nngp_tpu_torch.parallel.resume", fit, "--iterations", "10",
+         "--cycles", "2", "--sites", str(sites), "--save", out], sites,
+        timeout=600)]
+    for r in lines:
+        print(json.dumps({k: v for k, v in r.items() if k != "r_hat"}))
+    assert len({r["digest"] for r in lines}) == 1
+    assert all(r["exchanges_per_iteration"] > 0 for r in lines)
+    a = nngp_tpu_torch.load(out, device=dev)
+    b = nngp_tpu_torch.run(nngp_tpu_torch.load(fit, device=dev),
+                           n_iterations_update=10, n_cycles=2, verbose=False)
+    assert a.iterations == b.iterations == 20
+    for f in STATE_FIELDS:
+        x, z = getattr(a.states, f), getattr(b.states, f)
+        assert torch.isfinite(x).all(), f
+        assert (x - z).abs().max().item() <= 1e-3 * max(
+            1.0, z.abs().max().item()), f
 
 
 @pytest.mark.gpu

@@ -8,7 +8,8 @@ CPU, against nngp_tpu/parallel.
   (rtol 1e-10: float64 moments);
 - ``local_chain_slice`` for worlds 1, 2 and 4;
 - ``run(mc, mesh=...)`` on a one-rank gloo mesh equals ``run(mc)`` bit for
-  bit; uneven chains and a "sites" mesh raise;
+  bit, on a "chains" mesh and on a ("chains", "sites") mesh (halo mode);
+  uneven chains and a 1-D "sites" mesh raise;
 - ``entry()`` runs, and ``dryrun_multichip(2)`` runs over gloo.
 """
 
@@ -182,13 +183,23 @@ def test_uneven_chains_raise():
     assert mc.iterations == 0
 
 
-def test_sites_mesh_raises(mesh1):
+def test_sites_mesh_runs(mesh1):
+    """A ("chains", "sites") mesh runs halo mode (tests/test_torch_halo*.py
+    hold it against nngp_tpu): on one rank, run()'s chains bit for bit; a
+    1-D "sites" mesh is refused."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    from nngp_tpu_torch.parallel import halo_mesh
+
+    kw = dict(n_iterations_update=5, verbose=False)
+    a = nngp_tpu_torch.run(_fit(), mesh=halo_mesh(1), **kw)
+    b = nngp_tpu_torch.run(_fit(), **kw)
+    assert a.iterations == b.iterations == 5
+    for f in STATE_FIELDS:
+        assert torch.equal(getattr(a.states, f), getattr(b.states, f)), f
     sites = init_device_mesh("cpu", (1,), mesh_dim_names=("sites",))
-    with pytest.raises(NotImplementedError, match="halo mode"):
-        nngp_tpu_torch.run(_fit(), n_iterations_update=5, mesh=sites,
-                           verbose=False)
+    with pytest.raises(ValueError, match="mesh"):
+        nngp_tpu_torch.run(_fit(), mesh=sites, **kw)
 
 
 def test_entry_runs_on_cpu():
