@@ -27,7 +27,10 @@ with a nonzero exit and no "ok" line:
                   gather_probe, X3 gather_probe2) at the scripts' full
                   shapes, each against its plain PyTorch twin: the DSMEM
                   sweep within 1e-5 * max(1, |w|_inf) at every cluster
-                  size, gathers/roll/transpose/scatter exactly, the matmul
+                  size and its repeat calls bit for bit, its plan's build
+                  time and its barriers alone (X1's floor), the launch
+                  floor of the others, gathers/roll/transpose/scatter
+                  exactly, the matmul
                   within 1e-5 * max(1, |C|_inf) at the probe's shape and at
                   shapes that cross every tile edge, its repeat calls bit
                   for bit; the matmul and cuBLAS FP32 timed at 2048 x 512 x
@@ -303,11 +306,14 @@ def gather_probes(dev):
     args = gather_bench.sweep_args(t)
     want = gather_ops.gather_sweeps_reference(t["w0"].clone(), *args)
     tol = X1_TOL_REL * max(1.0, want.abs().max().item())
-    err["gather_sweeps"] = max(
-        held(f"X1 gather_sweeps cluster {cs}",
-             gather_ops.gather_sweeps(t["w0"].clone(), *args, cluster=cs),
-             want, tol)
-        for cs in gather_ops.CLUSTERS)
+    err["gather_sweeps"] = 0.0
+    for cs in gather_ops.CLUSTERS:
+        got = gather_ops.gather_sweeps(t["w0"].clone(), *args, cluster=cs)
+        err["gather_sweeps"] = max(err["gather_sweeps"], held(
+            f"X1 gather_sweeps cluster {cs}", got, want, tol))
+        if not torch.equal(got, gather_ops.gather_sweeps(
+                t["w0"].clone(), *args, cluster=cs)):
+            raise RuntimeError(f"X1 cluster {cs}: repeat calls differ")
     for mod, arrays in ((gather_probe, data.probe_arrays()),
                         (gather_probe2, data.probe2_arrays())):
         for p in mod.probes(data.to_device(arrays, dev)):
@@ -334,8 +340,14 @@ def gather_probes(dev):
     for name, o in out.items():
         if o["launches"] == 0:
             raise RuntimeError(f"the gather probes launched {name} no time")
-    out["gather_sweeps"].update(ms=x1[gather_ops.CLUSTER],
-                                plain_ms=x1["plain_ms"])
+    cs = gather_ops.CLUSTER
+    out["gather_sweeps"].update(ms=x1[cs], plain_ms=x1["plain_ms"],
+                                floor_ms=x1["floor_ms"][cs],
+                                plan_ms=1e3 * x1["plan_s"][cs])
+    print(f"  X1 cluster {cs}: kernel {x1[cs]:.4f} ms, barriers alone "
+          f"{x1['floor_ms'][cs]:.4f} ms, plan built in "
+          f"{1e3 * x1['plan_s'][cs]:.2f} ms outside the timed calls; repeat "
+          "calls bit-identical at every cluster size", flush=True)
     for name in ("staged_gather", "column_scatter", "matmul_f32"):
         rows = [r for r in probes if r["op"] == name]
         out[name].update(ms=sum(r["ms"] for r in rows),
@@ -394,11 +406,20 @@ def _library_call(p):
 def probe_yardsticks(dev):
     """Per gather-probe kernel, summed over its bodies at the scripts'
     shapes: the least time of its bytes and operations (``bound_ms``,
-    ``bound_by``) and the time of the PyTorch calls computing the same
-    function (``library_ms``; none for X1's colour-ordered sweep)."""
+    ``bound_by``), the time of the PyTorch calls computing the same
+    function (``library_ms``; none for X1's colour-ordered sweep) and, for
+    the kernels other than X1, the launch floor: one empty kernel's time
+    back to back (``torch.cuda._sleep(0)``) times the bodies
+    (``floor_ms``; X1's is its barriers alone, from gather_bench)."""
+    import torch
+
     from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
                                             gather_probe, gather_probe2,
                                             timing)
+
+    launch_ms, _ = timing.per_call_ms(lambda: torch.cuda._sleep(0))
+    print(f"  launch floor: {launch_ms * 1e3:.3f} us per empty kernel back "
+          "to back", flush=True)
 
     t = gather_bench.inputs(dev)
     args = gather_bench.sweep_args(t)
@@ -423,9 +444,10 @@ def probe_yardsticks(dev):
             ms, by = _bound(_nbytes(res, *tensors), flops)
             lib, _ = timing.per_call_ms(_library_call(p))
             o = out.setdefault(name, {"bound_ms": 0.0, "bound_by": by,
-                                      "library_ms": 0.0})
+                                      "library_ms": 0.0, "floor_ms": 0.0})
             o["bound_ms"] += ms
             o["library_ms"] += lib
+            o["floor_ms"] += launch_ms
     return out
 
 

@@ -6,19 +6,34 @@
 // TPU scripts asked which gather forms Mosaic lowers into VMEM code; a GPU
 // thread loads any address, so three kernels cover the twelve bodies:
 //
-// staged_gather_kernel<T> (f32 and i32): out = stage_n(... stage_1(src)),
-//   each stage one of
+// staged_gather_kernel<T, N, Code> (f32 and i32): out = stage_N(...
+//   stage_1(src)), each stage one of
 //     rows   out[i, j] = x[idx[i, j], j]   take_along_axis(x, idx, axis=0)
 //     cols   out[i, j] = x[i, idx[i, j]]   take_along_axis(x, idx, axis=1)
 //     roll   out[i, j] = x[(i - shift) mod rows, j]   jnp.roll(x, shift, 0)
 //     trans  out[i, j] = x[j, i]
-//   One thread per output element walks back through the stages to the
-//   source element and copies it, so no intermediate is stored.  Serves
-//   k_sub, k_lane, k_chain (gather_probe.py:65,71,76) and k_sub, k_lane,
-//   k_benes, k_roll, k_tr, k_sub2, k_lanei (gather_probe2.py:51-85).
-//   Bound: one dependent index load per stage and one source load per
-//   element, L2-resident at the probes' sizes (under 2 MB); launch latency
-//   at 65k-131k elements.
+//   Serves k_sub, k_lane, k_chain (gather_probe.py:65,71,76) and k_sub,
+//   k_lane, k_benes, k_roll, k_tr, k_sub2, k_lanei (gather_probe2.py:51-85).
+//   What bounds it on an H100: each body moves 0.1-1 MB, L2-resident, so
+//   its bytes take ~0.1-0.4 us, while an empty kernel launched back to
+//   back takes 1.726 us (NVIDIA H100 80GB HBM3, 700 W; chip_smoke.py's
+//   launch floor).  So the launch floor bounds it; then each stage's
+//   dependent index load (an L2 round trip), and in a rows stage one
+//   32-byte sector per element, since each element comes from its own row.
+//   Design: the chain's stage kinds are template arguments (Code holds N
+//   kinds, two bits each, first stage lowest): the walk back through the
+//   stages is straight-line code, one instantiation per sequence of at
+//   most 4 kinds, picked by staged_gather_launch.  A 2-D grid of (column
+//   group, row) threads with 32-bit indices; each thread owns four
+//   consecutive outputs of a row: it loads the last stage's index row as
+//   one int4 (where the row is 16-byte aligned), walks the four elements
+//   back with their loads in flight together, and stores one float4/int4.
+//   The grid is one wave of the card's 132 SMs at most and strides over the
+//   rows beyond it.  No intermediate is stored.
+//
+// transpose_kernel<T> (the chain of one trans stage, k_tr): a 32 x 33
+//   shared-memory tile per block, so that the reads of src and the writes
+//   of out both run along rows and coalesce.
 //
 // column_scatter_kernel (k_scat, gather_probe.py:82): out = 0, then
 //   out[idx[i, 0], 0] = val[i, 0] for every i, the last i winning, as in
@@ -67,6 +82,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <utility>
 
 namespace cg = cooperative_groups;
 
@@ -75,12 +91,14 @@ namespace {
 // ---------------------------------------------------------------- gathers
 
 constexpr int kMaxStages = 4;
-constexpr int kGatherThreads = 256;
+constexpr int kGroupsX = 32;        // column groups of 4 outputs per block
+constexpr int kRowsY = 8;           // rows per block per pass
+constexpr int kGatherWave = 132 * 8;   // blocks of 256 threads resident at once
+constexpr int kTile = 32;           // transpose tile
 enum StageKind : int { kRows = 0, kCols = 1, kRoll = 2, kTrans = 3 };
 
 struct Stage {
   const int* idx;  // rows/cols: index map with this stage's output shape
-  int kind;
   int out_cols;    // columns of this stage's output (row stride of idx)
   int in_rows;     // rows of this stage's input (the modulus of a roll)
   int shift;       // roll
@@ -88,37 +106,150 @@ struct Stage {
 
 struct Plan {
   Stage stage[kMaxStages];
-  int n_stages;
   int out_rows, out_cols;
   int src_cols;
+  int vec;         // out_cols % 4 == 0 and the last stage's idx 16-byte aligned
 };
 
-template <typename T>
-__global__ void __launch_bounds__(kGatherThreads)
+template <typename T> struct Vec4;
+template <> struct Vec4<float> { using type = float4; };
+template <> struct Vec4<int> { using type = int4; };
+
+// Applies stages t, t - 1, ..., 0 of the chain Code to four walks (i, j).
+template <int Code, int t>
+__device__ __forceinline__ void walk(const Plan& plan, int (&i)[4], int (&j)[4]) {
+  if constexpr (t >= 0) {
+    constexpr int kind = (Code >> (2 * t)) & 3;
+    const Stage& st = plan.stage[t];
+    if constexpr (kind == kRows) {
+      int v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldg(st.idx + i[u] * st.out_cols + j[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) i[u] = v[u];
+    } else if constexpr (kind == kCols) {
+      int v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) v[u] = __ldg(st.idx + i[u] * st.out_cols + j[u]);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) j[u] = v[u];
+    } else if constexpr (kind == kRoll) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        i[u] -= st.shift;  // 0 <= shift < in_rows (the wrapper reduces it)
+        if (i[u] < 0) i[u] += st.in_rows;
+      }
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int k = i[u];
+        i[u] = j[u];
+        j[u] = k;
+      }
+    }
+    walk<Code, t - 1>(plan, i, j);
+  }
+}
+
+template <typename T, int N, int Code>
+__global__ void __launch_bounds__(kGroupsX * kRowsY)
 staged_gather_kernel(const T* __restrict__ src, T* __restrict__ out,
                      Plan plan) {
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= (long long)plan.out_rows * plan.out_cols) return;
-  int i = (int)(e / plan.out_cols);
-  int j = (int)(e - (long long)i * plan.out_cols);
+  const int j0 = 4 * (blockIdx.x * kGroupsX + threadIdx.x);
+  if (j0 >= plan.out_cols) return;
+  const int n_valid = min(4, plan.out_cols - j0);
+  for (int r = blockIdx.y * kRowsY + threadIdx.y; r < plan.out_rows;
+       r += gridDim.y * kRowsY) {
+    int i[4], j[4];
 #pragma unroll
-  for (int t = kMaxStages - 1; t >= 0; --t) {
-    if (t >= plan.n_stages) continue;
-    const Stage& st = plan.stage[t];
-    if (st.kind == kRows) {
-      i = __ldg(st.idx + (long long)i * st.out_cols + j);
-    } else if (st.kind == kCols) {
-      j = __ldg(st.idx + (long long)i * st.out_cols + j);
-    } else if (st.kind == kRoll) {
-      i -= st.shift;  // 0 <= shift < in_rows (the wrapper reduces it)
-      if (i < 0) i += st.in_rows;
+    for (int u = 0; u < 4; ++u) {
+      i[u] = r;
+      j[u] = j0 + min(u, n_valid - 1);  // a ragged edge repeats its last column
+    }
+    constexpr int kLast = N > 0 ? (Code >> (2 * (N - 1))) & 3 : kRoll;
+    if constexpr (N > 0 && (kLast == kRows || kLast == kCols)) {
+      const int* row = plan.stage[N - 1].idx + r * plan.out_cols;
+      int v[4];
+      if (plan.vec) {
+        const int4 x = __ldg(reinterpret_cast<const int4*>(row + j0));
+        v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) v[u] = __ldg(row + j[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) (kLast == kRows ? i[u] : j[u]) = v[u];
+      walk<Code, N - 2>(plan, i, j);
     } else {
-      const int k = i;
-      i = j;
-      j = k;
+      walk<Code, N - 1>(plan, i, j);
+    }
+    T v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) v[u] = __ldg(src + i[u] * plan.src_cols + j[u]);
+    T* o = out + r * plan.out_cols + j0;
+    if (plan.vec) {
+      *reinterpret_cast<typename Vec4<T>::type*>(o) = {v[0], v[1], v[2], v[3]};
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (u < n_valid) o[u] = v[u];
     }
   }
-  out[e] = __ldg(src + (long long)i * plan.src_cols + j);
+}
+
+// out [cols, rows] = src [rows, cols] transposed, one 32 x 32 tile a block.
+template <typename T>
+__global__ void __launch_bounds__(kTile * kRowsY)
+transpose_kernel(const T* __restrict__ src, T* __restrict__ out, int rows,
+                 int cols) {
+  __shared__ T tile[kTile][kTile + 1];
+  const int c0 = blockIdx.x * kTile, r0 = blockIdx.y * kTile;
+  for (int k = threadIdx.y; k < kTile; k += kRowsY) {
+    const int r = r0 + k, c = c0 + threadIdx.x;
+    if (r < rows && c < cols) tile[k][threadIdx.x] = __ldg(src + r * cols + c);
+  }
+  __syncthreads();
+  for (int k = threadIdx.y; k < kTile; k += kRowsY) {
+    const int r = c0 + k, c = r0 + threadIdx.x;   // out row = src column
+    if (r < cols && c < rows) out[r * rows + c] = tile[threadIdx.x][k];
+  }
+}
+
+template <typename T>
+using GatherKernel = void (*)(const T*, T*, Plan);
+
+// The instantiation for the chain of N stages whose kinds Code packs.
+template <typename T, int N, int... C>
+GatherKernel<T> pick_chain(int code, std::integer_sequence<int, C...>) {
+  static const GatherKernel<T> table[] = {&staged_gather_kernel<T, N, C>...};
+  return table[code];
+}
+
+template <typename T>
+GatherKernel<T> chain_kernel(int n_stages, int code) {
+  switch (n_stages) {
+    case 0: return pick_chain<T, 0>(code, std::make_integer_sequence<int, 1>{});
+    case 1: return pick_chain<T, 1>(code, std::make_integer_sequence<int, 4>{});
+    case 2: return pick_chain<T, 2>(code, std::make_integer_sequence<int, 16>{});
+    case 3: return pick_chain<T, 3>(code, std::make_integer_sequence<int, 64>{});
+    default: return pick_chain<T, 4>(code, std::make_integer_sequence<int, 256>{});
+  }
+}
+
+template <typename T>
+void launch_chain(const Plan& plan, int n_stages, int code, const T* src,
+                  T* out, int src_rows, cudaStream_t s) {
+  const dim3 block(kGroupsX, kRowsY);
+  if (n_stages == 1 && code == kTrans) {
+    const dim3 grid((plan.out_rows + kTile - 1) / kTile,
+                    (src_rows + kTile - 1) / kTile);
+    transpose_kernel<T><<<grid, block, 0, s>>>(src, out, src_rows, plan.out_rows);
+    return;
+  }
+  const int gx = ((plan.out_cols + 3) / 4 + kGroupsX - 1) / kGroupsX;
+  const int rows_y = (plan.out_rows + kRowsY - 1) / kRowsY;
+  const int gy = max(1, min(rows_y, kGatherWave / gx));
+  chain_kernel<T>(n_stages, code)<<<dim3(gx, gy), block, 0, s>>>(src, out, plan);
 }
 
 // ---------------------------------------------------------------- scatter
@@ -478,7 +609,8 @@ MmKernel matmul_kernel_for(int ks) {
 // cudaGetLastError() (0 = launched).
 
 // kinds/idx/out_cols/in_rows/shifts: n_stages host entries, first stage
-// first; is_int selects the int32 kernel over the float32 one.
+// first; is_int selects the int32 kernels over the float32 ones.  Every
+// element count must be below 2^31 (the wrapper checks).
 extern "C" int staged_gather_launch(const void* src, void* out, int is_int,
                                     int src_cols, int out_rows, int out_cols,
                                     int n_stages, const int* kinds,
@@ -487,27 +619,30 @@ extern "C" int staged_gather_launch(const void* src, void* out, int is_int,
                                     void* stream) {
   if (n_stages < 0 || n_stages > kMaxStages) return (int)cudaErrorInvalidValue;
   Plan plan = {};
-  plan.n_stages = n_stages;
   plan.out_rows = out_rows;
   plan.out_cols = out_cols;
   plan.src_cols = src_cols;
+  int code = 0;
   for (int t = 0; t < n_stages; ++t) {
+    if (kinds[t] < kRows || kinds[t] > kTrans) return (int)cudaErrorInvalidValue;
+    code |= kinds[t] << (2 * t);
     plan.stage[t].idx = static_cast<const int*>(idx[t]);
-    plan.stage[t].kind = kinds[t];
     plan.stage[t].out_cols = stage_cols[t];
     plan.stage[t].in_rows = in_rows[t];
     plan.stage[t].shift = shifts[t];
   }
-  const long long n = (long long)out_rows * out_cols;
-  if (n > 0) {
-    const unsigned blocks = (unsigned)((n + kGatherThreads - 1) / kGatherThreads);
+  const int* last = n_stages > 0 ? plan.stage[n_stages - 1].idx : nullptr;
+  plan.vec = out_cols % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
+             reinterpret_cast<uintptr_t>(last) % 16 == 0;
+  const int src_rows = n_stages > 0 ? in_rows[0] : out_rows;
+  if (out_rows > 0 && out_cols > 0) {
     cudaStream_t s = (cudaStream_t)stream;
     if (is_int)
-      staged_gather_kernel<int><<<blocks, kGatherThreads, 0, s>>>(
-          static_cast<const int*>(src), static_cast<int*>(out), plan);
+      launch_chain<int>(plan, n_stages, code, static_cast<const int*>(src),
+                        static_cast<int*>(out), src_rows, s);
     else
-      staged_gather_kernel<float><<<blocks, kGatherThreads, 0, s>>>(
-          static_cast<const float*>(src), static_cast<float*>(out), plan);
+      launch_chain<float>(plan, n_stages, code, static_cast<const float*>(src),
+                          static_cast<float*>(out), src_rows, s);
   }
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 Four wrappers, each with a ``.launches`` count of kernel launches:
 
 ``gather_sweeps``  the whole-sweep field update of gather_bench.py (X1):
-                   ``csrc/gather_sweep.cu``, field in a cluster's DSMEM
+                   ``csrc/gather_sweep.cu``, field in a cluster's DSMEM,
+                   each product pushed to its site's owner (a plan from
+                   ``gather_sweeps_plan``)
 ``staged_gather``  take_along_axis chains, roll and transpose of
                    gather_probe.py/gather_probe2.py: ``csrc/gather_probes.cu``
 ``column_scatter`` the scatter ``out[idx[:, 0], 0] = val[:, 0]`` into zeros
@@ -20,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -27,7 +30,7 @@ from nngp_tpu_torch.ops import _build
 from nngp_tpu_torch.ops.sweep import _check
 
 # Blocks in the DSMEM cluster that holds X1's field: the fastest of
-# CLUSTERS at the script's shapes on an H100 (PERF.md, PR 2).
+# CLUSTERS at the script's shapes on an H100 (gather_bench, PERF.md §6).
 CLUSTERS = (2, 4, 8, 16)
 CLUSTER = 16
 _SMEM_FLOATS = 232448 // 4   # shared memory one block may hold
@@ -74,18 +77,166 @@ def gather_sweeps_reference(w, sites, nbrs, q, P, noise, keep):
     return w
 
 
+class SweepPlan(NamedTuple):
+    """X1's routing for one cluster size (``gather_sweeps_plan``).  Rank r
+    of the cluster owns the field entries k with k % cluster == r, at slot
+    k // cluster; row g = b * cluster + r of each table is block step b on
+    rank r, padded to the longest row.  A rank's partials buffer holds one
+    segment per source rank, in rank order, so that the products one rank
+    pushes to another in a step land side by side."""
+    cluster: int
+    # [NB * cluster, n_pushes, 4] int32: the neighbour's slot on rank r,
+    # q's bits, the rank that owns the site (-1: padding), the product's
+    # slot in that rank's partials buffer
+    pushes: torch.Tensor
+    # [NB * cluster, n_owned, 2] int32: a kept site of rank r (its slot,
+    # -1: padding; its i), in order of i
+    owned: torch.Tensor
+    # [NB * cluster, n_owned, W] int16: the partial slot of each of those
+    # sites' products, in neighbour order
+    where: torch.Tensor
+    # the (sites, nbrs, q, keep) it was built from, each beside its
+    # version count: a call must pass these tensors, unchanged since
+    source: tuple = ()
+
+    @property
+    def slots(self):
+        """Floats of one partials buffer: the longest owned row times W."""
+        return self.owned.shape[1] * _W
+
+
+def _padded(rows, n_rows, fill, values):
+    """``values`` [m, ...] (sorted by ``rows``) laid out as [n_rows, longest
+    row, ...], each row left-aligned and padded with ``fill``."""
+    counts = torch.bincount(rows, minlength=n_rows)
+    start = torch.cumsum(counts, 0) - counts
+    width = int(counts.max()) if len(rows) else 0
+    out = values.new_full((n_rows, width, *values.shape[1:]), fill)
+    out[rows, torch.arange(len(rows), device=rows.device) - start[rows]] = values
+    return out
+
+
+def _exclusive_cumsum(x, dim):
+    return torch.cumsum(x, dim) - x
+
+
+def gather_sweeps_plan(sites, nbrs, q, keep, cluster=CLUSTER):
+    """The kernel's plan from the static inputs, built once with torch ops
+    on their device (sorts of unique keys: deterministic).  Each kept site
+    goes to its owner's row of block step b in order of i; each of its
+    pairs (i, j) goes to the pushes of the rank that owns nbrs[b, i, j],
+    ordered by destination rank, then i, then j, and its product to the
+    next slot of that source rank's segment of the owner's buffer.  Pairs
+    of sites that are not kept are dropped."""
+    if cluster not in CLUSTERS:
+        raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
+    sources = (sites, nbrs, q, keep)
+    NB, B = sites.shape
+    W = nbrs.shape[-1]
+    dev, cs, groups = sites.device, cluster, NB * cluster
+    b = torch.arange(NB, device=dev)[:, None].expand(NB, B)
+    i = torch.arange(B, device=dev)[None, :].expand(NB, B)
+    sites, nbrs = sites.long(), nbrs.long()
+    owner = sites % cs
+    key, _ = torch.sort(((b * cs + owner) * B + i)[keep])
+    group, ki = key // B, key % B
+    kb = group // cs
+    owned = _padded(group, groups, -1, torch.stack([sites[kb, ki] // cs, ki], 1))
+
+    nb = nbrs[kb, ki]                                    # [K, W]
+    src, dst = nb % cs, owner[kb, ki][:, None].expand(-1, W)
+    run = ((kb[:, None] * cs + src) * cs + dst).flatten()   # (b, src, dst)
+    order = torch.argsort(run * (B * W) + (ki[:, None] * W
+                                           + torch.arange(W, device=dev)).flatten())
+    count = torch.bincount(run, minlength=groups * cs)       # [b, src, dst]
+    segment = _exclusive_cumsum(count.view(NB, cs, cs), 1).flatten()
+    at = torch.empty_like(run)                               # place in its run
+    at[order] = torch.arange(len(run), device=dev) - _exclusive_cumsum(
+        count, 0)[run[order]]
+    slot = segment[run] + at
+    pushes = torch.stack([nb.flatten() // cs, q[kb, ki].view(torch.int32)
+                          .long().flatten(), dst.flatten(), slot], -1)
+    rows = (kb[:, None] * cs + src).flatten()
+    # a plan that fits in shared memory has fewer than 2^15 slots a buffer
+    where = slot.view(-1, W).to(torch.int16)
+    return SweepPlan(cs, _padded(rows[order], groups, -1, pushes[order])
+                     .to(torch.int32), owned.to(torch.int32),
+                     _padded(group, groups, 0, where),
+                     tuple((t, t._version) for t in sources))
+
+
+def gather_sweeps_smem_floats(n, plan):
+    """Floats of shared memory a block of the kernel takes: its part of
+    the field, rounded up to 4, and two partials buffers."""
+    return (-(-n // plan.cluster) + 3) // 4 * 4 + 2 * plan.slots
+
+
 @functools.cache
 def _sweep_library():
     lib = _build.cuda_library("gather_sweep")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.gather_sweeps_launch.argtypes = [p, i, p, p, p, p, p, p, i, i, i, i, p]
+    lib.gather_sweeps_launch.argtypes = [p, i, p, i, p, p, i, p, p] + [i] * 5 + [p]
     lib.gather_sweeps_launch.restype = ctypes.c_int
     return lib
 
 
-def gather_sweeps_cuda(w, sites, nbrs, q, P, noise, keep, cluster=CLUSTER):
-    """Launch the DSMEM kernel on the current stream (no synchronise)."""
-    lib = _sweep_library()
+def _launch_sweeps(w, P, noise, plan, barriers_only):
+    S, NB, B = noise.shape
+    err = _sweep_library().gather_sweeps_launch(
+        w.data_ptr(), w.shape[0], plan.pushes.data_ptr(), plan.pushes.shape[1],
+        plan.owned.data_ptr(), plan.where.data_ptr(), plan.owned.shape[1],
+        P.data_ptr(), noise.data_ptr(), NB, B, S, plan.cluster,
+        int(barriers_only),
+        torch.cuda.current_stream(w.device).cuda_stream)
+    _raise_on(err, "gather_sweeps")
+
+
+def _check_plan_source(plan, sites, nbrs, q, keep, cluster):
+    """Raise unless ``plan`` was built for ``cluster`` from these very
+    tensors and none of them changed since: the kernel reads the plan
+    alone, the plain version the tensors alone."""
+    if not isinstance(plan, SweepPlan):
+        raise TypeError(f"plan must be a SweepPlan, got {type(plan).__name__}")
+    if plan.cluster != cluster:
+        raise ValueError(f"the plan is for cluster {plan.cluster}, not "
+                         f"{cluster}")
+    given = (sites, nbrs, q, keep)
+    if len(plan.source) != len(given) or not all(
+            isinstance(t, torch.Tensor) and t.data_ptr() == s.data_ptr()
+            and t.shape == s.shape and t.stride() == s.stride()
+            and t._version == v for t, (s, v) in zip(given, plan.source)):
+        raise ValueError("the plan was not built from these sites, nbrs, q "
+                         "and keep, or they changed since: build it with "
+                         "gather_sweeps_plan from the tensors of the call")
+
+
+def _check_plan(plan, n, NB, dev):
+    if not isinstance(plan, SweepPlan):
+        raise TypeError(f"plan must be a SweepPlan, got {type(plan).__name__}")
+    rows = NB * plan.cluster
+    _check("plan.pushes", plan.pushes, torch.int32,
+           (rows, plan.pushes.shape[1], 4), dev)
+    _check("plan.owned", plan.owned, torch.int32,
+           (rows, plan.owned.shape[1], 2), dev)
+    _check("plan.where", plan.where, torch.int16,
+           (rows, plan.owned.shape[1], _W), dev)
+    # the kernel reads pushes and where as 16-byte vectors, owned as 8-byte
+    for name, t, align in (("pushes", plan.pushes, 16),
+                           ("where", plan.where, 16),
+                           ("owned", plan.owned, 8)):
+        if t.data_ptr() % align:
+            raise ValueError(f"plan.{name} must be {align}-byte aligned")
+    if gather_sweeps_smem_floats(n, plan) > _SMEM_FLOATS:
+        raise ValueError(f"a field of {n} floats and partials of "
+                         f"{plan.slots} floats do not fit in the shared "
+                         f"memory of a cluster of {plan.cluster} blocks")
+
+
+def gather_sweeps_cuda(w, sites, nbrs, q, P, noise, keep, cluster=CLUSTER,
+                       plan=None):
+    """Launch the DSMEM kernel on the current stream (no synchronise);
+    builds the plan first when none is given."""
+    _sweep_library()
     dev = w.device
     n = w.shape[0]
     S, NB, B = noise.shape
@@ -99,31 +250,40 @@ def gather_sweeps_cuda(w, sites, nbrs, q, P, noise, keep, cluster=CLUSTER):
     _check("keep", keep, torch.bool, (NB, B), dev)
     if cluster not in CLUSTERS:
         raise ValueError(f"cluster must be one of {CLUSTERS}, got {cluster}")
-    if -(-n // cluster) > _SMEM_FLOATS:
-        raise ValueError(f"a field of {n} floats does not fit in the shared "
-                         f"memory of a cluster of {cluster} blocks")
-    if -(-B // cluster) > 512:
-        raise ValueError(f"{B} sites per block step need more than 512 "
-                         f"threads per block at cluster {cluster}")
-    if nbrs.data_ptr() % 16 or q.data_ptr() % 16:
-        raise ValueError("nbrs and q must be 16-byte aligned")
-    err = lib.gather_sweeps_launch(
-        w.data_ptr(), n, sites.data_ptr(), keep.data_ptr(), nbrs.data_ptr(),
-        q.data_ptr(), P.data_ptr(), noise.data_ptr(), NB, B, S, cluster,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "gather_sweeps")
+    if plan is None:
+        plan = gather_sweeps_plan(sites, nbrs, q, keep, cluster)
+    _check_plan_source(plan, sites, nbrs, q, keep, cluster)
+    _check_plan(plan, n, NB, dev)
+    _launch_sweeps(w, P, noise, plan, False)
     gather_sweeps.launches += 1
     return w
 
 
-def gather_sweeps(w, sites, nbrs, q, P, noise, keep, cluster=CLUSTER):
+def gather_sweeps_floor(w, P, noise, plan):
+    """The kernel's step loop with its cluster and block barriers alone,
+    nothing loaded or stored (``w`` is left as it is): X1's dependency
+    floor, for timing.  Not counted in ``gather_sweeps.launches``."""
+    S, NB, B = noise.shape
+    _check("P", P, torch.float32, (NB, B), w.device)
+    _check("noise", noise, torch.float32, (S, NB, B), w.device)
+    _check_plan(plan, w.shape[0], NB, w.device)
+    _launch_sweeps(w, P, noise, plan, True)
+
+
+def gather_sweeps(w, sites, nbrs, q, P, noise, keep, cluster=CLUSTER,
+                  plan=None):
     """All sweeps of gather_bench.py's field update, in place on ``w``
     [n]: sites/keep [NB, B], nbrs/q [NB, B, 16], P [NB, B], noise
     [S, NB, B]; ``keep = last_occurrence(sites)``.  ``cluster`` (one of
-    CLUSTERS) is the kernel's cluster size."""
+    CLUSTERS) is the kernel's cluster size; ``plan`` is
+    ``gather_sweeps_plan(sites, nbrs, q, keep, cluster)`` of these very
+    tensors, built here when not given; any other plan raises, on every
+    device."""
+    if plan is not None:
+        _check_plan_source(plan, sites, nbrs, q, keep, cluster)
     return _dispatch("gather_sweeps", w, gather_sweeps_cuda,
                      gather_sweeps_reference, w, sites, nbrs, q, P, noise,
-                     keep, cluster=cluster)
+                     keep, cluster=cluster, plan=plan)
 
 
 gather_sweeps.launches = 0
@@ -209,6 +369,9 @@ def staged_gather_cuda(src, stages):
         in_rows.append(rows_in)
         rows_in = r
     out_rows, out_cols = shapes[-1] if shapes else tuple(src.shape)
+    if max([src.numel()] + [r * c for r, c in shapes]) >= 2**31:
+        raise ValueError("staged_gather indexes with 32 bits: every tensor "
+                         "of the chain must hold fewer than 2^31 elements")
     out = torch.empty(out_rows, out_cols, dtype=src.dtype, device=dev)
     ints = ctypes.c_int * n
     err = lib.staged_gather_launch(

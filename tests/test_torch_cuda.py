@@ -563,6 +563,109 @@ def test_gather_sweeps_matches_plain(cluster):
     assert (got - want).abs().max().item() <= tol
 
 
+def _ragged_sweeps(case, dev, seed=0):
+    """X1 inputs off the script's shapes, as (w0, sites, nbrs, q, P, noise,
+    keep) on ``dev``: "ragged" has n and B multiples of no cluster size,
+    "repeats" a block step in which most sites repeat."""
+    rng = np.random.default_rng(seed)
+    n, NB, B, S = (1003, 4, 37, 3) if case == "ragged" else (997, 3, 300, 2)
+    sites = rng.integers(0, n, size=(NB, B))
+    if case == "repeats":
+        sites[1] = rng.integers(0, 7, size=B)
+    arrays = [rng.normal(size=n), sites, rng.integers(0, n, size=(NB, B, 16)),
+              0.1 * rng.normal(size=(NB, B, 16)),
+              rng.uniform(1.0, 2.0, size=(NB, B)), rng.normal(size=(S, NB, B))]
+    t = [torch.from_numpy(a.astype(np.int32 if a.dtype.kind == "i"
+                                   else np.float32)).to(dev) for a in arrays]
+    return (*t, gather_ops.last_occurrence(t[1]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", gather_ops.CLUSTERS)
+@pytest.mark.parametrize("case", ["ragged", "repeats"])
+def test_gather_sweeps_ragged_matches_plain(case, cluster):
+    """X1 where B and n are multiples of no cluster size, and where most
+    sites of a block step repeat: within 1e-5 * max(1, |w|_inf) of plain."""
+    dev = _card()
+    w0, *args = _ragged_sweeps(case, dev)
+    got = gather_ops.gather_sweeps(w0.clone(), *args, cluster=cluster)
+    want = gather_ops.gather_sweeps_reference(w0.clone(), *args)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    tol = 1e-5 * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cluster", gather_ops.CLUSTERS)
+def test_gather_sweeps_repeat_calls_bit_identical(cluster):
+    """Products formed on the neighbour's rank and summed in neighbour
+    order: two calls with one plan give the same bits, one launch each."""
+    dev = _card()
+    t = gather_bench.inputs(dev)
+    args = gather_bench.sweep_args(t)
+    plan = gather_ops.gather_sweeps_plan(t["sites"], t["nbrs"], t["q"],
+                                         t["keep"], cluster)
+    before = gather_ops.gather_sweeps.launches
+    first = gather_ops.gather_sweeps(t["w0"].clone(), *args, cluster=cluster,
+                                     plan=plan)
+    assert gather_ops.gather_sweeps.launches == before + 1
+    second = gather_ops.gather_sweeps(t["w0"].clone(), *args, cluster=cluster,
+                                      plan=plan)
+    torch.cuda.synchronize()
+    assert gather_ops.gather_sweeps.launches == before + 2
+    assert torch.equal(first, second)
+
+
+# chains of one to four stages over every kind, at sizes that are
+# multiples of neither 4 nor 32
+CHAINS = [("rows",), ("cols",), ("roll",), ("trans",), ("rows", "cols"),
+          ("trans", "rows"), ("cols", "roll"), ("roll", "trans", "cols"),
+          ("cols", "rows", "cols"), ("rows", "trans", "roll", "cols"),
+          ("trans", "cols", "trans", "rows"), ("roll", "roll", "rows", "trans")]
+
+
+def _ragged_chain(kinds, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    rows, cols = 37, 29
+    src = (rng.integers(-99, 99, size=(rows, cols)) if dtype == torch.int32
+           else rng.normal(size=(rows, cols)))
+    stages = []
+    for kind in kinds:
+        if kind == "rows":
+            new = int(rng.choice([5, 33, 61]))
+            idx = rng.integers(0, rows, size=(new, cols))
+            rows = new
+        elif kind == "cols":
+            new = int(rng.choice([3, 36, 67]))
+            idx = rng.integers(0, cols, size=(rows, new))
+            cols = new
+        if kind in ("rows", "cols"):
+            stages.append((kind, torch.from_numpy(idx.astype(np.int32)).to(dev)))
+        elif kind == "roll":
+            stages.append(("roll", int(rng.integers(-50, 50))))
+        else:
+            stages.append(("trans",))
+            rows, cols = cols, rows
+    return torch.from_numpy(src).to(dtype).to(dev), stages
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int32],
+                         ids=["f32", "i32"])
+@pytest.mark.parametrize("kinds", CHAINS, ids=["-".join(c) for c in CHAINS])
+def test_staged_gather_ragged_chains_exact(kinds, dtype):
+    """Chains of 1-4 stages on ragged shapes equal the plain version."""
+    dev = _card()
+    src, stages = _ragged_chain(kinds, dtype, dev)
+    before = gather_ops.staged_gather.launches
+    got = gather_ops.staged_gather(src, stages)
+    want = gather_ops.staged_gather_reference(src, stages)
+    torch.cuda.synchronize()
+    assert gather_ops.staged_gather.launches == before + 1
+    assert got.dtype == want.dtype and torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize(
     "script,index", [("probe", i) for i in range(5)]
@@ -645,6 +748,12 @@ def test_matmul_split_matches_python():
         assert lib.matmul_f32_split(M, N, K) == gather_ops.matmul_split_k(M, N, K)
 
 
+def _misaligned(t):
+    """A contiguous copy of ``t`` one element past an aligned address."""
+    out = t.new_empty(t.numel() + 1)[1:].view(t.shape)
+    return out.copy_(t)
+
+
 def _gather_cases(dev):
     """Per wrapper: good arguments, and (exception, bad arguments) pairs."""
     i32 = dict(dtype=torch.int32, device=dev)
@@ -660,12 +769,20 @@ def _gather_cases(dev):
     sg = dict(src=torch.zeros(8, 4, device=dev), stages=[("rows", idx)])
     cs = dict(val=torch.zeros(8, 4, device=dev), idx=idx, n_rows=4)
     mm = dict(a=torch.zeros(8, 8, device=dev), b=torch.zeros(8, 4, device=dev))
+    plan = gather_ops.gather_sweeps_plan(sw["sites"], sw["nbrs"], sw["q"],
+                                         sw["keep"])
     return {
         "gather_sweeps": (sw, [
             (TypeError, {**sw, "nbrs": sw["nbrs"].long()}),
             (ValueError, {**sw, "P": sw["P"].cpu()}),
             (ValueError, {**sw, "q": torch.zeros(NB, B, 8, device=dev)}),
-            (ValueError, {**sw, "cluster": 3})]),
+            (ValueError, {**sw, "cluster": 3}),
+            (ValueError, {**sw, "plan": gather_ops.gather_sweeps_plan(
+                sw["sites"], sw["nbrs"], sw["q"], sw["keep"], 2)}),
+            (ValueError, {**sw, "sites": sw["sites"].clone(), "plan": plan}),
+            *[(ValueError, {**sw, "plan": plan._replace(
+                **{k: _misaligned(getattr(plan, k))})})
+              for k in ("pushes", "owned", "where")]]),
         "staged_gather": (sg, [
             (TypeError, {**sg, "stages": [("rows", idx.long())]}),
             (ValueError, {**sg, "stages": [("rows", idx.cpu())]}),

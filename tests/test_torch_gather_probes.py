@@ -17,6 +17,7 @@ differs by a large relative amount between any two summation orders).
 """
 
 import copy
+import functools
 import importlib.util
 import os
 import pathlib
@@ -361,9 +362,9 @@ def test_duplicates_scatter():
     np.testing.assert_array_equal(np.asarray(interp(val, idx)), want)
 
 
-def test_duplicates_sweeps():
-    """A small X1 case whose block steps repeat most sites, against the
-    script's xla_sweeps loop restated over explicit arrays."""
+def _duplicate_case():
+    """A small X1 case whose block steps repeat most sites: (w0, sites,
+    nbrs, q, P, noise) as numpy arrays."""
     rng = np.random.default_rng(3)
     n, NB, B, W, S = 40, 3, 16, 16, 2
     w0 = rng.normal(size=n).astype(np.float32)
@@ -372,6 +373,14 @@ def test_duplicates_sweeps():
     q = (0.1 * rng.normal(size=(NB, B, W))).astype(np.float32)
     P = rng.uniform(1.0, 2.0, size=(NB, B)).astype(np.float32)
     noise = rng.normal(size=(S, NB, B)).astype(np.float32)
+    return w0, sites, nbrs, q, P, noise
+
+
+def test_duplicates_sweeps():
+    """A small X1 case whose block steps repeat most sites, against the
+    script's xla_sweeps loop restated over explicit arrays."""
+    w0, sites, nbrs, q, P, noise = _duplicate_case()
+    NB, S = sites.shape[0], noise.shape[0]
     j_sites, j_nbrs, j_q, j_P = map(jnp.asarray, (sites, nbrs, q, P))
 
     @jax.jit
@@ -398,6 +407,198 @@ def test_duplicates_sweeps():
         torch.from_numpy(w0.copy()), t["sites"], t["nbrs"], t["q"], t["P"],
         t["noise"], first).numpy()
     assert np.abs(other - want).max() > 1e-3
+
+
+# --- X1's plan: routing of the owner-computes kernel, and its sums ---------
+
+def _x1_case(case):
+    """(w0, sites, nbrs, q, P, noise, keep) as tensors: the script's arrays
+    or the duplicate-heavy case."""
+    if case == "script":
+        t = gather_bench.inputs("cpu")
+        return (t["w0"], *gather_bench.sweep_args(t)[:5], t["keep"])
+    arrays = [torch.from_numpy(a) for a in _duplicate_case()]
+    return (*arrays, gather_ops.last_occurrence(arrays[1]))
+
+
+def _plan_pairs(plan):
+    """Every push decoded through the owners' slot tables: (b, i, j,
+    source rank, neighbour slot, q bits, destination rank) as int64
+    tensors; padding dropped."""
+    cs, W = plan.cluster, gather_ops._W
+    valid = plan.owned[..., 0] >= 0
+    orow, ok = valid.nonzero(as_tuple=True)
+    slot = plan.where[orow, ok].long()                         # [K, W]
+    inverse = torch.full((len(plan.owned), plan.slots), -1, dtype=torch.long)
+    inverse[orow[:, None], slot] = ok[:, None] * W + torch.arange(W)
+    row, col = (plan.pushes[..., 2] >= 0).nonzero(as_tuple=True)
+    e = plan.pushes[row, col].long()
+    b, src, dst = row // cs, row % cs, e[:, 2]
+    kj = inverse[b * cs + dst, e[:, 3]]
+    assert bool((kj >= 0).all())
+    i = plan.owned[b * cs + dst, kj // W, 1].long()
+    return b, i, kj % W, src, e[:, 0], e[:, 1], dst
+
+
+@pytest.mark.parametrize("case", ["script", "duplicates"])
+@pytest.mark.parametrize("cluster", gather_ops.CLUSTERS)
+def test_x1_plan_routes_every_kept_pair_once(cluster, case):
+    """Every kept (i, j) pair is pushed exactly once, from the rank that
+    owns nbrs[b, i, j] to the rank that owns sites[b, i]; no pair of a site
+    that is not kept; the owned rows are the kept sites of each rank in
+    order of i, padding last; the shared memory the plan asks for fits."""
+    w0, sites, nbrs, q, P, noise, keep = _x1_case(case)
+    NB, B = sites.shape
+    W, cs = gather_ops._W, cluster
+    plan = gather_ops.gather_sweeps_plan(sites, nbrs, q, keep, cs)
+    b, i, j, src, slot, qbits, dst = _plan_pairs(plan)
+    assert bool(keep[b, i].all())
+    key = (b * B + i) * W + j
+    assert len(key) == int(keep.sum()) * W == len(torch.unique(key))
+    assert torch.equal(slot * cs + src, nbrs[b, i, j].long())
+    assert torch.equal(qbits.int(), q[b, i, j].view(torch.int32))
+    assert torch.equal(dst, sites[b, i].long() % cs)
+    valid = plan.owned[..., 0] >= 0
+    assert bool((valid[:, 1:] <= valid[:, :-1]).all())   # padding last
+    row, _ = valid.nonzero(as_tuple=True)
+    own = plan.owned[valid].long()
+    assert torch.equal(own[:, 0] * cs + row % cs,
+                       sites[row // cs, own[:, 1]].long())
+    kb, ki = keep.nonzero(as_tuple=True)
+    want = torch.sort((kb * cs + sites[kb, ki].long() % cs) * B + ki).values
+    assert torch.equal(row * B + own[:, 1], want)
+    assert plan.slots == int(valid.sum(1).max()) * W
+    # each owner's slots: a permutation of its first count * W floats, and
+    # the products one rank sends it in a step side by side
+    used = plan.where[valid].long()
+    assert torch.equal(torch.sort(used.flatten() + row.repeat_interleave(W)
+                                  * plan.slots).values,
+                       torch.cat([torch.arange(int(c) * W) + r * plan.slots
+                                  for r, c in enumerate(valid.sum(1))]))
+    prow, _ = (plan.pushes[..., 2] >= 0).nonzero(as_tuple=True)
+    e = plan.pushes[plan.pushes[..., 2] >= 0].long()
+    run = prow * cs + e[:, 2]
+    assert torch.equal(run, torch.sort(run, stable=True).values)
+    same = run[1:] == run[:-1]
+    assert bool((e[1:, 3][same] == e[:-1, 3][same] + 1).all())
+    assert gather_ops.gather_sweeps_smem_floats(w0.shape[0], plan) \
+        <= gather_ops._SMEM_FLOATS
+
+
+def _emulate_plan(w, P, noise, plan):
+    """The kernel's steps in plain torch: each rank's products pushed into
+    its owners' partial slots, each owned site's W slots summed in
+    neighbour order (a test helper, not a plain version of X1)."""
+    cs, W = plan.cluster, gather_ops._W
+    S, NB, _ = noise.shape
+    pushes, owned, where = (plan.pushes.long(), plan.owned.long(),
+                            plan.where.long())
+    for s in range(S):
+        for b in range(NB):
+            bufs = torch.zeros(cs, max(plan.slots, 1))
+            for r in range(cs):
+                e = pushes[b * cs + r]
+                e = e[e[:, 2] >= 0]
+                bufs[e[:, 2], e[:, 3]] = (w[e[:, 0] * cs + r]
+                                          * e[:, 1].int().view(torch.float32))
+            for r in range(cs):
+                o = owned[b * cs + r]
+                valid = o[:, 0] >= 0
+                o = o[valid]
+                parts = bufs[r, where[b * cs + r][valid]]   # [k, W]
+                acc = torch.zeros(len(o))
+                for j in range(W):
+                    acc = acc + parts[:, j]
+                p = P[b, o[:, 1]]
+                w[o[:, 0] * cs + r] = (acc / p
+                                       + noise[s, b, o[:, 1]] * torch.rsqrt(p))
+    return w
+
+
+def _neighbour_order(w, sites, nbrs, q, P, noise, keep):
+    """The sweeps with each site's products summed in neighbour order."""
+    S, NB, _ = noise.shape
+    for s in range(S):
+        for b in range(NB):
+            k = keep[b].nonzero().squeeze(1)
+            acc = torch.zeros(len(k))
+            for j in range(nbrs.shape[-1]):
+                acc = acc + q[b, k, j] * w[nbrs[b, k, j].long()]
+            p = P[b, k]
+            w[sites[b, k].long()] = acc / p + noise[s, b, k] * torch.rsqrt(p)
+    return w
+
+
+@functools.cache
+def _x1_sums(case):
+    w0, sites, nbrs, q, P, noise, keep = _x1_case(case)
+    args = (sites, nbrs, q, P, noise, keep)
+    return (_neighbour_order(w0.clone(), *args),
+            gather_ops.gather_sweeps_reference(w0.clone(), *args))
+
+
+@pytest.mark.parametrize("case", ["script", "duplicates"])
+@pytest.mark.parametrize("cluster", gather_ops.CLUSTERS)
+def test_x1_plan_sums_in_neighbour_order(cluster, case):
+    """Walking the plan gives the neighbour-order sums bit for bit, and
+    gather_sweeps_reference within 1e-5 * max(1, |w|_inf)."""
+    w0, sites, nbrs, q, P, noise, keep = _x1_case(case)
+    plan = gather_ops.gather_sweeps_plan(sites, nbrs, q, keep, cluster)
+    got = _emulate_plan(w0.clone(), P, noise, plan)
+    ordered, want = _x1_sums(case)
+    assert torch.equal(got, ordered)
+    tol = REL_TOL * max(1.0, want.abs().max().item())
+    assert (got - want).abs().max().item() <= tol
+
+
+def _stale(case, args, plan):
+    """The call's arguments and plan after ``case`` (one way of passing a
+    plan that does not belong to the call)."""
+    sites, nbrs, q, P, noise, keep = args
+    if case == "other-tensor":
+        return (sites.clone(), nbrs, q, P, noise, keep), plan
+    if case == "changed-since":
+        q = q.clone()
+        plan = gather_ops.gather_sweeps_plan(sites, nbrs, q, keep, plan.cluster)
+        q[0, 0, 0] += 1.0
+        return (sites, nbrs, q, P, noise, keep), plan
+    if case == "other-cluster":
+        return args, gather_ops.gather_sweeps_plan(sites, nbrs, q, keep, 2)
+    return args, plan._replace(source=())                   # hand-made
+
+
+@pytest.mark.parametrize("case", ["other-tensor", "changed-since",
+                                  "other-cluster", "hand-made"])
+def test_x1_plan_must_belong_to_the_call(case):
+    """The kernel reads only the plan, the plain version only the tensors:
+    the wrapper raises on a plan not built from the call's very tensors,
+    or built before they changed, on the CPU as on a card; the plan of the
+    call itself gives the plain version's field."""
+    w0, *args = _x1_case("duplicates")
+    plan = gather_ops.gather_sweeps_plan(args[0], args[1], args[2], args[5])
+    got = gather_ops.gather_sweeps(w0.clone(), *args, plan=plan)
+    assert torch.equal(got, gather_ops.gather_sweeps_reference(w0.clone(),
+                                                               *args))
+    bad_args, bad_plan = _stale(case, args, plan)
+    with pytest.raises(ValueError):
+        gather_ops.gather_sweeps(w0.clone(), *bad_args, plan=bad_plan)
+
+
+@pytest.mark.parametrize("field,align", [("pushes", 16), ("where", 16),
+                                         ("owned", 8)])
+def test_x1_plan_alignment_checked(field, align):
+    """The kernel loads pushes and where as 16-byte vectors and owned as
+    8-byte ones: a plan table off that alignment raises before a launch."""
+    w0, *args = _x1_case("duplicates")
+    plan = gather_ops.gather_sweeps_plan(args[0], args[1], args[2], args[5])
+    NB, cpu = args[0].shape[0], torch.device("cpu")
+    gather_ops._check_plan(plan, w0.shape[0], NB, cpu)
+    t = getattr(plan, field)
+    for off in range(1, align // t.element_size()):
+        moved = t.new_empty(t.numel() + off)[off:].view(t.shape).copy_(t)
+        with pytest.raises(ValueError, match=f"{align}-byte aligned"):
+            gather_ops._check_plan(plan._replace(**{field: moved}),
+                                   w0.shape[0], NB, cpu)
 
 
 # --- dispatch, validation and entry points --------------------------------
