@@ -321,9 +321,14 @@ def gather_probes(dev):
             tol = (MM_TOL_REL * max(1.0, want.abs().max().item())
                    if p.op is gather_ops.matmul_f32 else 0.0)
             name = p.op.__name__
+            got = p.op(*p.args)
             err[name] = max(err.get(name, 0.0),
                             held(f"{mod.__name__.rsplit('.', 1)[1]}: "
-                                 f"{p.name}", p.op(*p.args), want, tol))
+                                 f"{p.name}", got, want, tol))
+            if p.op is gather_ops.column_scatter:
+                if not torch.equal(got, p.op(*p.args)):
+                    raise RuntimeError(f"{p.name}: repeat calls differ")
+                print(f"  {p.name}: repeat call bit-identical", flush=True)
     matmul_checks(dev)
     torch.cuda.synchronize()
     yardsticks = probe_yardsticks(dev)
@@ -406,7 +411,8 @@ def _library_call(p):
 def probe_yardsticks(dev):
     """Per gather-probe kernel, summed over its bodies at the scripts'
     shapes: the least time of its bytes and operations (``bound_ms``,
-    ``bound_by``), the time of the PyTorch calls computing the same
+    ``bound_by``; column_scatter's bytes are out and the sectors of column
+    0 of val and idx), the time of the PyTorch calls computing the same
     function (``library_ms``; none for X1's colour-ordered sweep) and, for
     the kernels other than X1, the launch floor: one empty kernel's time
     back to back (``torch.cuda._sleep(0)``) times the bodies
@@ -437,11 +443,16 @@ def probe_yardsticks(dev):
             if p.op is gather_ops.staged_gather:
                 tensors += [st[1] for st in p.args[1]
                             if st[0] in ("rows", "cols")]
-            flops = 0.0
+            flops, nbytes = 0.0, _nbytes(res, *tensors)
             if p.op is gather_ops.matmul_f32:
                 (M, K), N = p.args[0].shape, p.args[1].shape[1]
                 flops = 2.0 * M * N * K
-            ms, by = _bound(_nbytes(res, *tensors), flops)
+            if p.op is gather_ops.column_scatter:
+                # it reads column 0 of val and idx: an element a 32-byte
+                # sector where the row stride is wider
+                n_in, cols = p.args[0].shape
+                nbytes = _nbytes(res) + 2 * n_in * min(4 * cols, 32)
+            ms, by = _bound(nbytes, flops)
             lib, _ = timing.per_call_ms(_library_call(p))
             o = out.setdefault(name, {"bound_ms": 0.0, "bound_by": by,
                                       "library_ms": 0.0, "floor_ms": 0.0})
@@ -1179,7 +1190,7 @@ def main():
         "launches": launches, "max_abs_err": kv["max_abs_err"],
         "ms": kv[3]["ms"], "plain_ms": kv[3]["plain_ms"],
         "bound_ms": kv[3]["bound_ms"], "bound_by": kv[3]["bound_by"],
-        "library_ms": None,
+        "floor_ms": kv[3]["barriers_ms"], "library_ms": None,
         "halo": f"halo mode launches it once a colour step a rank: "
                 f"{halo_launches} launches in 25 iterations of a 1 x 1 mesh"}
         ] + [

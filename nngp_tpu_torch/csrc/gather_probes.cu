@@ -37,11 +37,43 @@
 //
 // column_scatter_kernel (k_scat, gather_probe.py:82): out = 0, then
 //   out[idx[i, 0], 0] = val[i, 0] for every i, the last i winning, as in
-//   XLA's scatter.  Each block owns kScatterRows output rows; it scans the
-//   whole index column and takes, per row, the largest i that names it
-//   (atomicMax in shared memory: the result does not depend on the order
-//   of the atomics), then writes its rows.  Bound: every block reads the
-//   index column (4 KB at the probe's size); output writes are coalesced.
+//   XLA's scatter.
+//   What bounds it on an H100 (NVIDIA H100 80GB HBM3, 700 W): the launch
+//   floor (an empty kernel back to back: 1.68-1.90 us, by card) and the
+//   index column.  A column of a row-major [n_in, cols] tensor puts each
+//   element in its own 128-byte line, and an SM looks up about one line a
+//   cycle (blocks reading 1,024, 2,048 and 4,096 lines an SM took 3.28,
+//   3.60 and 4.5 us), so a block that reads the probe's column ([1024,
+//   128]) spends ~0.5 us on lookups, whatever rows it owns.  The design
+//   this replaces (16 blocks of 32 rows, 6.67 us) lost 2.45 us to its
+//   fill's dependent val[winner] loads, which two threads a block waited
+//   on once a pass, sixteen passes in turn, and ~1.8 us to 4-byte stores
+//   from 16 SMs.
+//   Design: one launch of 256-thread blocks, each owning R >= 8 rows of
+//   out: one wave of at most 132 blocks where the rows allow it (R = 8,
+//   64 blocks at the probe's shape), so that each SM reads the column
+//   once whatever n_rows is, up to R = 6,144.  A block issues its first
+//   1,024 index loads before anything else, stores the zeros of its rows
+//   as float4s (scalars at a ragged edge) while they fly, then loads
+//   val[i, 0] for each index that names one of its rows and keeps, per
+//   row, the largest 64-bit key (i + 1) << 32 | bits(val[i, 0]) by
+//   atomicMax in shared memory: the value rides with the winner, so no
+//   load waits after the block barrier that precedes the column-0 stores,
+//   and the result depends neither on the order of the atomics nor on the
+//   call.  The order matters: against a scratch twin in one call, the
+//   kernel stood 0.43 us behind while it subtracted r0 from each loaded
+//   row before the fill (the subtraction held the fill's stores until the
+//   loads returned), 0.19 us behind while its keys were zeroed ahead of
+//   the loads, and 0.09 us behind with both fixed.  A 64-bit atomicMax on
+//   shared memory compiles to a compare-and-swap loop (ATOMS.CAST.SPIN.64):
+//   cheap at a few indices a row, serial where every index names one row.
+//   Measured and not taken (scratch builds, one card a call): a cluster
+//   that splits the column between its blocks (a cluster launch alone
+//   costs 2.33-2.45 us against 1.76, and a 64-bit max pushed to another
+//   block's shared memory, by atomicMax or red.shared::cluster.max.u64,
+//   gave wrong winners where the 32-bit form was right); fill blocks
+//   apart from scan blocks (no faster); the value loaded for every index
+//   (+0.35 us: twice the lines); 4 to 16 rows a block (within 0.1 us).
 //
 // matmul_f32_kernel<KS> (k_mm, gather_probe.py:93, through try_kernel
 //   :27,42): C = A B to float32 accuracy on the tensor cores, as 3xTF32.
@@ -254,31 +286,84 @@ void launch_chain(const Plan& plan, int n_stages, int code, const T* src,
 
 // ---------------------------------------------------------------- scatter
 
-constexpr int kScatterRows = 32;
 constexpr int kScatterThreads = 256;
+constexpr int kScatterLoads = 4;       // index loads in flight a thread
+constexpr int kScatterMinRows = 8;     // rows a block owns, at least
+constexpr int kScatterMaxRows = 6144;  // and at most: 48 KB of keys
+constexpr int kScatterWave = 132;      // blocks of one wave: an H100 SXM's SMs
 
+// Rows a block owns: one wave of blocks where the rows allow it.
+int scatter_rows(int n_rows) {
+  const int r = (n_rows + kScatterWave - 1) / kScatterWave;
+  return r < kScatterMinRows ? kScatterMinRows
+                             : (r > kScatterMaxRows ? kScatterMaxRows : r);
+}
+
+// Zeros into p[0, n): scalars up to a 16-byte boundary, float4s, scalars.
+__device__ __forceinline__ void zero_fill(float* __restrict__ p, int n) {
+  const int head = min((4 - (int)((reinterpret_cast<uintptr_t>(p) >> 2) & 3)) & 3, n);
+  const int n4 = (n - head) >> 2;
+  const int tail = (n - head) & 3;
+  float4* q = reinterpret_cast<float4*>(p + head);
+  if ((int)threadIdx.x < head) p[threadIdx.x] = 0.0f;
+  for (int k = threadIdx.x; k < n4; k += kScatterThreads)
+    q[k] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if ((int)threadIdx.x < tail) p[head + 4 * n4 + threadIdx.x] = 0.0f;
+}
+
+// The rows named by indices b + u * kScatterThreads + threadIdx.x (-1 past
+// n_in).  Nothing is computed from them here: an instruction that used a
+// loaded row would hold the zero fill's stores until the loads returned.
+__device__ __forceinline__ void scatter_rows_named(const int* __restrict__ idx,
+                                                   int n_in, int cols, unsigned b,
+                                                   int (&row)[kScatterLoads]) {
+#pragma unroll
+  for (int u = 0; u < kScatterLoads; ++u) {
+    const unsigned i = b + u * kScatterThreads + threadIdx.x;
+    row[u] = i < (unsigned)n_in ? __ldg(idx + (long long)i * cols) : -1;
+  }
+}
+
+// Block b owns rows [b R, b R + R) of out, R = rows_per_block; key[r] is
+// (i + 1) << 32 | bits(val[i, 0]) for the largest i naming row r0 + r.
 __global__ void __launch_bounds__(kScatterThreads)
 column_scatter_kernel(const float* __restrict__ val,  // [n_in, cols]
                       const int* __restrict__ idx,    // [n_in, cols]
                       int n_in, int cols,
                       float* __restrict__ out,        // [n_rows, cols]
-                      int n_rows) {
-  __shared__ int winner[kScatterRows];
-  const int r0 = blockIdx.x * kScatterRows;
-  for (int r = threadIdx.x; r < kScatterRows; r += blockDim.x) winner[r] = -1;
+                      int n_rows, int rows_per_block) {
+  extern __shared__ unsigned long long key[];
+  const int r0 = blockIdx.x * rows_per_block;
+  const int rows = min(rows_per_block, n_rows - r0);
+  int row[kScatterLoads];
+  scatter_rows_named(idx, n_in, cols, 0, row);   // ahead of all else
+  for (int r = threadIdx.x; r < rows; r += kScatterThreads) key[r] = 0;
+  zero_fill(out + (long long)r0 * cols, rows * cols);   // while the loads fly
   __syncthreads();
-  for (int i = threadIdx.x; i < n_in; i += blockDim.x) {
-    const int r = __ldg(idx + (long long)i * cols) - r0;
-    if (r >= 0 && r < kScatterRows) atomicMax(&winner[r], i);
+  for (unsigned b = 0;;) {   // unsigned: b passes n_in by < 2^10
+    float v[kScatterLoads];
+#pragma unroll
+    for (int u = 0; u < kScatterLoads; ++u) {
+      const unsigned i = b + u * kScatterThreads + threadIdx.x;
+      v[u] = (unsigned)(row[u] - r0) < (unsigned)rows
+                 ? __ldg(val + (long long)i * cols) : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kScatterLoads; ++u) {
+      const int off = row[u] - r0;
+      if ((unsigned)off < (unsigned)rows) {
+        const unsigned i = b + u * kScatterThreads + threadIdx.x;
+        atomicMax(&key[off], (unsigned long long)(i + 1) << 32 | __float_as_uint(v[u]));
+      }
+    }
+    b += kScatterLoads * kScatterThreads;
+    if (b >= (unsigned)n_in) break;
+    scatter_rows_named(idx, n_in, cols, b, row);
   }
   __syncthreads();
-  const int rows = min(kScatterRows, n_rows - r0);
-  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x) {
-    const int r = e / cols;
-    const int c = e - r * cols;
-    const int src = winner[r];
-    out[(long long)(r0 + r) * cols + c] =
-        (c == 0 && src >= 0) ? __ldg(val + (long long)src * cols) : 0.0f;
+  for (int r = threadIdx.x; r < rows; r += kScatterThreads) {
+    const unsigned long long k = key[r];
+    out[(long long)(r0 + r) * cols] = k ? __uint_as_float((unsigned)k) : 0.0f;
   }
 }
 
@@ -647,13 +732,18 @@ extern "C" int staged_gather_launch(const void* src, void* out, int is_int,
   return (int)cudaGetLastError();
 }
 
+// Rows of out that one block of column_scatter owns.
+extern "C" int column_scatter_rows(int n_rows) { return scatter_rows(n_rows); }
+
+// Every element count below 2^31 (the wrapper checks).
 extern "C" int column_scatter_launch(const float* val, const int* idx, int n_in,
                                      int cols, float* out, int n_rows,
                                      void* stream) {
   if (n_rows > 0 && cols > 0) {
-    const int blocks = (n_rows + kScatterRows - 1) / kScatterRows;
-    column_scatter_kernel<<<blocks, kScatterThreads, 0, (cudaStream_t)stream>>>(
-        val, idx, n_in, cols, out, n_rows);
+    const int rows = scatter_rows(n_rows);
+    column_scatter_kernel<<<(n_rows + rows - 1) / rows, kScatterThreads,
+                            rows * sizeof(unsigned long long), (cudaStream_t)stream>>>(
+        val, idx, n_in, cols, out, n_rows, rows);
   }
   return (int)cudaGetLastError();
 }

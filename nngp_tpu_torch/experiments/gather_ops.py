@@ -337,10 +337,12 @@ def _probe_library():
     lib.staged_gather_launch.argtypes = [
         p, p, i, i, i, i, i, pi, ctypes.POINTER(ctypes.c_void_p), pi, pi, pi, p]
     lib.column_scatter_launch.argtypes = [p, p, i, i, p, i, p]
+    lib.column_scatter_rows.argtypes = [i]
     lib.matmul_f32_launch.argtypes = [p, p, p, i, i, i, p]
     lib.matmul_f32_split.argtypes = [i, i, i]
     for fn in (lib.staged_gather_launch, lib.column_scatter_launch,
-               lib.matmul_f32_launch, lib.matmul_f32_split):
+               lib.column_scatter_rows, lib.matmul_f32_launch,
+               lib.matmul_f32_split):
         fn.restype = ctypes.c_int
     return lib
 
@@ -405,6 +407,53 @@ def column_scatter_reference(val, idx, n_rows):
     return out[:n_rows]
 
 
+# The kernel's launch: threads a block, index loads in flight a thread,
+# the least and most rows a block owns, and the blocks of one wave (an
+# H100 SXM's SMs).
+SCATTER_THREADS = 256
+SCATTER_LOADS = 4
+SCATTER_ROWS = (8, 6144)
+SCATTER_WAVE = 132
+
+
+def scatter_rows_per_block(n_rows):
+    """Rows of out one block of the kernel owns (the C side's
+    ``column_scatter_rows``): one wave of blocks where the rows allow it."""
+    lo, hi = SCATTER_ROWS
+    return min(hi, max(lo, -(-n_rows // SCATTER_WAVE)))
+
+
+def column_scatter_emulated(val, idx, n_rows):
+    """The kernel's algorithm on the CPU: per block of
+    ``scatter_rows_per_block`` rows, the index column in the kernel's
+    batches of SCATTER_LOADS x SCATTER_THREADS, each index naming a row of
+    the block giving the key (i + 1) << 32 | bits(val[i, 0]) and each row
+    taking the largest key; column 0 is the low 32 bits of a row's key, 0
+    where none named it.  For tests."""
+    n_in, cols = val.shape
+    col = idx[:, 0].long()
+    bits = val[:, 0].contiguous().view(torch.int32).long() & 0xFFFFFFFF
+    keys = (torch.arange(1, n_in + 1) << 32) | bits
+    R = scatter_rows_per_block(n_rows)
+    batch = SCATTER_LOADS * SCATTER_THREADS
+    out = torch.zeros(n_rows, cols, dtype=torch.float32)
+    for r0 in range(0, n_rows, R):
+        rows = min(R, n_rows - r0)
+        best = torch.zeros(rows, dtype=torch.int64)
+        for b in range(0, n_in, batch):
+            for u in range(SCATTER_LOADS):
+                lo = min(n_in, b + u * SCATTER_THREADS)
+                i = torch.arange(lo, min(n_in, lo + SCATTER_THREADS))
+                off = col[i] - r0
+                hit = (off >= 0) & (off < rows)
+                best.scatter_reduce_(0, off[hit], keys[i[hit]], "amax")
+        low = best & 0xFFFFFFFF
+        low = torch.where(low >= 2**31, low - 2**32, low).to(torch.int32)
+        out[r0:r0 + rows, 0] = torch.where(best != 0, low.view(torch.float32),
+                                           torch.zeros(()))
+    return out
+
+
 def column_scatter_cuda(val, idx, n_rows):
     """Launch the column-scatter kernel on the current stream."""
     lib = _probe_library()
@@ -414,6 +463,9 @@ def column_scatter_cuda(val, idx, n_rows):
     _check("val", val, torch.float32, val.shape, dev)
     _check("idx", idx, torch.int32, val.shape, dev)
     n_in, cols = val.shape
+    if max(val.numel(), n_rows * cols) >= 2**31:
+        raise ValueError("column_scatter indexes with 32 bits: val, idx and "
+                         "out must each hold fewer than 2^31 elements")
     out = torch.empty(n_rows, cols, dtype=torch.float32, device=dev)
     err = lib.column_scatter_launch(
         val.data_ptr(), idx.data_ptr(), n_in, cols, out.data_ptr(), n_rows,

@@ -748,6 +748,60 @@ def test_matmul_split_matches_python():
         assert lib.matmul_f32_split(M, N, K) == gather_ops.matmul_split_k(M, N, K)
 
 
+# column_scatter at ragged sizes: the CPU tests' sizes (n_in, n_rows, cols,
+# pattern of idx's column 0) and 2^18 indices into one wave of blocks
+SCATTER_CASES = (
+    [(n, r, c, "random") for n in (0, 1, 7, 1024, 4097)
+     for r in (1, 31, 512, 513) for c in (1, 3, 4, 128, 131)]
+    + [(n, r, c, p) for n, r, c, p in [
+        (7, 513, 4, "one row"), (4097, 31, 128, "one row"),
+        (4097, 513, 131, "one row"), (7, 31, 131, "distinct"),
+        (512, 513, 128, "distinct"), (2**18, 512, 128, "random"),
+        (2**18, 513, 131, "one row")]])
+
+
+def _scatter_case(n_in, n_rows, cols, pattern, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    val = rng.normal(size=(n_in, cols)).astype(np.float32)
+    idx = rng.integers(0, n_rows, size=(n_in, cols)).astype(np.int32)
+    if pattern == "one row":
+        idx[:, 0] = rng.integers(0, n_rows)
+    elif pattern == "distinct":
+        idx[:, 0] = rng.permutation(n_rows)[:n_in]
+    return torch.from_numpy(val).to(dev), torch.from_numpy(idx).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_in,n_rows,cols,pattern", SCATTER_CASES,
+                         ids=["-".join(map(str, c)).replace(" ", "")
+                              for c in SCATTER_CASES])
+def test_column_scatter_ragged_exact(n_in, n_rows, cols, pattern):
+    """The kernel equals the plain twin bit for bit and two calls give the
+    same bits.  Before each call a block of NaNs of the output's size is
+    freed, which the caching allocator hands out again, so an element the
+    kernel leaves unwritten shows."""
+    dev = _card()
+    val, idx = _scatter_case(n_in, n_rows, cols, pattern, dev)
+    before = gather_ops.column_scatter.launches
+    got = []
+    for _ in range(2):
+        torch.full((n_rows, cols), float("nan"), device=dev)   # freed at once
+        got.append(gather_ops.column_scatter(val, idx, n_rows))
+    want = gather_ops.column_scatter_reference(val, idx, n_rows)
+    torch.cuda.synchronize()
+    assert gather_ops.column_scatter.launches == before + 2
+    assert torch.equal(got[0], want) and torch.equal(got[0], got[1])
+
+
+@pytest.mark.gpu
+def test_column_scatter_rows_match_python():
+    """The C side's rows a block equal Python's ``scatter_rows_per_block``."""
+    _card()
+    lib = gather_ops._probe_library()
+    for n in (1, 8, 512, 1056, 1057, 10**5, 811008, 811009, 2**24):
+        assert lib.column_scatter_rows(n) == gather_ops.scatter_rows_per_block(n)
+
+
 def _misaligned(t):
     """A contiguous copy of ``t`` one element past an aligned address."""
     out = t.new_empty(t.numel() + 1)[1:].view(t.shape)
@@ -790,7 +844,8 @@ def _gather_cases(dev):
         "column_scatter": (cs, [
             (TypeError, {**cs, "idx": idx.long()}),
             (ValueError, {**cs, "idx": idx.cpu()}),
-            (ValueError, {**cs, "idx": torch.zeros(8, 2, **i32)})]),
+            (ValueError, {**cs, "idx": torch.zeros(8, 2, **i32)}),
+            (ValueError, {**cs, "n_rows": 2**29})]),   # out of 2^31 elements
         "matmul_f32": (mm, [
             (TypeError, {**mm, "b": mm["b"].double()}),
             (ValueError, {**mm, "b": mm["b"].cpu()}),

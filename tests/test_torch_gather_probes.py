@@ -362,6 +362,77 @@ def test_duplicates_scatter():
     np.testing.assert_array_equal(np.asarray(interp(val, idx)), want)
 
 
+# --- column_scatter's partition: the kernel's algorithm on the CPU --------
+
+SCATTER_N_IN = (0, 1, 7, 1024, 4097)
+SCATTER_N_ROWS = (1, 31, 512, 513)
+SCATTER_COLS = (1, 3, 4, 128, 131)
+SCATTER_CASES = (
+    [(n, r, c, "random") for n in SCATTER_N_IN for r in SCATTER_N_ROWS
+     for c in SCATTER_COLS]
+    + [(n, r, SCATTER_COLS[k % 5], "one row") for k, (n, r) in enumerate(
+        (n, r) for n in SCATTER_N_IN[1:] for r in SCATTER_N_ROWS)]
+    + [(n, r, SCATTER_COLS[k % 5], "distinct") for k, (n, r) in enumerate(
+        [(n, r) for n in SCATTER_N_IN[1:] for r in SCATTER_N_ROWS if n <= r]
+        + [(512, 512), (512, 513)])])
+
+
+def scatter_case(n_in, n_rows, cols, pattern, seed=0):
+    """(val, idx) as numpy: idx's column 0 random, one row for every index,
+    or all distinct; its other columns random (the kernel ignores them)."""
+    rng = np.random.default_rng(seed)
+    val = rng.normal(size=(n_in, cols)).astype(np.float32)
+    idx = rng.integers(0, n_rows, size=(n_in, cols)).astype(np.int32)
+    if pattern == "one row":
+        idx[:, 0] = rng.integers(0, n_rows)
+    elif pattern == "distinct":
+        idx[:, 0] = rng.permutation(n_rows)[:n_in]
+    return val, idx
+
+
+@pytest.mark.parametrize("n_in,n_rows,cols,pattern", SCATTER_CASES,
+                         ids=["-".join(map(str, c)).replace(" ", "")
+                              for c in SCATTER_CASES])
+def test_column_scatter_partition(n_in, n_rows, cols, pattern):
+    """The kernel's algorithm (its row tiles, index batches and 64-bit key
+    max, ``column_scatter_emulated``), the plain twin and the script's
+    k_scat through pl.pallas_call(interpret=True) agree bit for bit.  With
+    no index, Pallas takes no empty operand: k_scat's expression in XLA."""
+    val, idx = scatter_case(n_in, n_rows, cols, pattern)
+    tv, ti = torch.from_numpy(val), torch.from_numpy(idx)
+    emulated = gather_ops.column_scatter_emulated(tv, ti, n_rows).numpy()
+    plain = gather_ops.column_scatter_reference(tv, ti, n_rows).numpy()
+    if n_in:
+        script = pl.pallas_call(
+            k_scat, out_shape=jax.ShapeDtypeStruct((n_rows, cols), jnp.float32),
+            in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+            out_specs=pl.BlockSpec(memory_space=pltpu.VMEM), interpret=True)(
+                val, idx)
+    else:
+        script = jnp.zeros((n_rows, cols), jnp.float32).at[
+            idx[:, 0], 0].set(val[:, 0])
+    script = np.asarray(script)
+    assert emulated.shape == plain.shape == script.shape == (n_rows, cols)
+    np.testing.assert_array_equal(emulated.view(np.int32), plain.view(np.int32))
+    np.testing.assert_array_equal(script.view(np.int32), plain.view(np.int32))
+
+
+@pytest.mark.parametrize("n_rows", [1, 8, 512, 1056, 1057, 10**5, 811008,
+                                    811009, 2**24])
+def test_scatter_rows_per_block(n_rows):
+    """At least SCATTER_ROWS[0] and at most SCATTER_ROWS[1] rows a block,
+    the fewest for which the blocks fit one wave of SCATTER_WAVE; 8 rows
+    and 64 blocks at the probe's 512."""
+    lo, hi = gather_ops.SCATTER_ROWS
+    R = gather_ops.scatter_rows_per_block(n_rows)
+    blocks = -(-n_rows // R)
+    assert lo <= R <= hi
+    assert blocks <= gather_ops.SCATTER_WAVE or R == hi
+    assert R == lo or -(-n_rows // (R - 1)) > gather_ops.SCATTER_WAVE
+    if n_rows == data.R:
+        assert (R, blocks) == (8, 64)
+
+
 def _duplicate_case():
     """A small X1 case whose block steps repeat most sites: (w0, sites,
     nbrs, q, P, noise) as numpy arrays."""
