@@ -50,28 +50,37 @@ with a nonzero exit and no "ok" line:
                   max(1, |w|_inf)
   9. save/load    save the fit, load it on the card (states and records bit
                   for bit) and resume it for 25 iterations
- 10. matern       initialize with matern_sphere at full width; the factor
+ 10. examples     the six scripts of nngp_tpu_torch/examples/ through their
+                  main() on the card: heavy_metals at full width (3 chains,
+                  1 cycle x 25 iterations, saved), heavy_metals_analysis on
+                  that fit (predict_field on the 0.25 deg US grid, no
+                  figures), heavy_metals_96 (96 chains, 1 x 10), then
+                  vignette_toy, matern_fit and synthetic_families with
+                  --quick; for each the sweep kernel's launches counted
+                  from zero (one an iteration it ran), a finite summary,
+                  seconds and ms per iteration
+ 11. matern       initialize with matern_sphere at full width; the factor
                   build's proposal log-det difference at the Matérn probe's
                   (range, nu) against the float64 oracle (tolerance 1e-2),
                   then run 25 iterations and estimate the smoothness
- 11. determinism  the main path twice from seed 1 (initialize -> run, 10
+ 12. determinism  the main path twice from seed 1 (initialize -> run, 10
                   iterations, 3 chains, full width): states and records bit
                   for bit, the count of differing elements 0
- 12. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
+ 13. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
                   2 iterations x 2 chains of the 96-site toy, records finite
- 13. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
+ 14. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
                   K = 1) saved and loaded twice, then run for 25 iterations
                   with run(mc, mesh=...) and with run(mc): the count of
                   differing state and record elements 0; collective_grb over
                   NCCL against the host Gelman_Rubin_Brooks, rtol 1e-10
- 14. two ranks    a 6-chain fit at full width saved once; then
+ 15. two ranks    a 6-chain fit at full width saved once; then
                   python -m nngp_tpu_torch.parallel.resume on it for 25
                   iterations as 1 process (6 chains) and twice as 2 gloo
                   ranks sharing the card (3 chains each): the ranks hold the
                   same R-hat and fit digest, both 2-rank launches the same
                   digest, every rank one sweep-kernel launch an iteration;
                   ms per iteration of each
- 15. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
+ 16. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
                   on the main path's fit: every colour step of both D = 2
                   owned sub-plans on the fit's sweep inputs, bit for bit
                   with one launch of the whole plan and within TOL_REL of
@@ -86,7 +95,7 @@ with a nonzero exit and no "ok" line:
                   each rank's ms per iteration, exchanges and bytes per
                   iteration and the plan's overlap; then the plan at scale
                   (host only): 100,000 sites over 8 ranks, overlap < 10 %
- 16. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+ 17. bench        the bench's path (nngp_tpu_torch/bench.py) through its
                   functions at full width with short fixed windows: the
                   sweep kernel's parity preflight, the 96-chain leg (K = 3,
                   lean records, 100 warmup + 100 timed iterations), the
@@ -490,6 +499,53 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
         if not bool(torch.isfinite(getattr(mc.states, f)).all()):
             raise RuntimeError(f"non-finite {f} after run")
     return mc, secs, launches
+
+
+def examples(td):
+    """Each example of nngp_tpu_torch/examples/ through its main() on the
+    card, the sweep kernel's launches counted from zero for each: exactly
+    one an iteration it ran, and a finite summary.  (name, summary,
+    seconds, launches) for each, in order; the ms per iteration printed is
+    the example's own (its run calls, setup excluded)."""
+    import os
+
+    import torch
+
+    from nngp_tpu_torch.examples import (_common, heavy_metals,
+                                         heavy_metals_96,
+                                         heavy_metals_analysis, matern_fit,
+                                         synthetic_families, vignette_toy)
+    from nngp_tpu_torch.ops import sweep
+
+    fit, out = os.path.join(td, "hm_fit.pkl"), os.path.join(td, "examples")
+    runs = ((heavy_metals, ["--cycles", "1", "--iters", "25", "--save", fit]),
+            (heavy_metals_analysis, [fit]),
+            (heavy_metals_96, ["--cycles", "1", "--iters", "10"]),
+            (vignette_toy, ["--quick"]),
+            (matern_fit, ["--quick"]),
+            (synthetic_families, ["--quick"]))
+    done = []
+    for module, argv in runs:
+        name = module.__name__.rsplit(".", 1)[1]
+        sweep.chromatic_sweeps.launches = 0
+        t = time.perf_counter()
+        summary = module.main(argv + ["--out", out])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        launches = sweep.chromatic_sweeps.launches
+        if launches != summary["iterations_run"]:
+            raise RuntimeError(f"{name}: the sweep kernel launched {launches} "
+                               f"times in {summary['iterations_run']} "
+                               "iterations")
+        if not _common.all_finite(summary):
+            raise RuntimeError(f"{name}: non-finite summary {summary}")
+        done.append((name, summary, secs, launches))
+        its = summary["iterations_run"]
+        print(f"  [{name}] {secs:.3f} s, {its} iterations"
+              + (f", {summary['ms_per_iteration']:.2f} ms/iteration"
+                 if its else "")
+              + f", sweep kernel launches {launches}", flush=True)
+    return done
 
 
 def matern_logdet(mc):
@@ -1054,6 +1110,26 @@ def main():
     del back
 
     t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        ex = {name: (s, secs, n) for name, s, secs, n in examples(td)}
+    hm, hm96, an = (ex[k][0] for k in ("heavy_metals", "heavy_metals_96",
+                                       "heavy_metals_analysis"))
+    if hm["n_sites"] != mc.graph.n or hm96["n_sites"] != mc.graph.n \
+            or hm96["n_chains"] != 96:
+        raise RuntimeError(f"examples: heavy_metals at {hm['n_sites']} sites,"
+                           f" heavy_metals_96 at {hm96['n_sites']} sites and "
+                           f"{hm96['n_chains']} chains, not {mc.graph.n}")
+    ex_launches = sum(n for _, _, n in ex.values())
+    phase("examples", f"six examples through main() on the card: "
+          f"heavy_metals {hm['n_sites']} sites x 3 chains "
+          f"{hm['ms_per_iteration']:.2f} ms/iteration, heavy_metals_96 x 96 "
+          f"chains {hm96['ms_per_iteration']:.2f}, heavy_metals_analysis "
+          f"predict_field at {an['grid_sites']} grid sites "
+          f"{an['predict_s']:.3f} s; " + ", ".join(
+              f"{k} {secs:.1f} s" for k, (_, secs, _) in ex.items())
+          + f"; sweep kernel launches {ex_launches}, one an iteration", t)
+
+    t = time.perf_counter()
     mm = nngp_tpu_torch.initialize(
         locs, y, X_locs=X, m=5, stationary_covfun="matern_sphere",
         n_chains=3, seed=1, device=dev, verbose=False)
@@ -1187,12 +1263,14 @@ def main():
         "name": "chromatic_sweeps", "route": "cuda",
         "source": "nngp_tpu_torch/csrc/chromatic_sweep.cu",
         "replaces": "nngp_tpu/ops/pallas_sweep.py:159",
-        "launches": launches, "max_abs_err": kv["max_abs_err"],
+        "launches": launches + ex_launches, "max_abs_err": kv["max_abs_err"],
         "ms": kv[3]["ms"], "plain_ms": kv[3]["plain_ms"],
         "bound_ms": kv[3]["bound_ms"], "bound_by": kv[3]["bound_by"],
         "floor_ms": kv[3]["barriers_ms"], "library_ms": None,
         "halo": f"halo mode launches it once a colour step a rank: "
-                f"{halo_launches} launches in 25 iterations of a 1 x 1 mesh"}
+                f"{halo_launches} launches in 25 iterations of a 1 x 1 mesh",
+        "examples": f"launches: {launches} on the main path and "
+                    f"{ex_launches} in the examples phase"}
         ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))

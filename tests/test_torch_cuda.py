@@ -525,6 +525,23 @@ def test_dryrun_multichip_one_nccl_rank(capsys):
 
 
 @pytest.mark.gpu
+def test_vignette_example_on_card(tmp_path):
+    """python -m nngp_tpu_torch.examples.vignette_toy --quick, through
+    main(), on the card: one sweep kernel launch an iteration of both fits,
+    a finite summary that names the card."""
+    from nngp_tpu_torch.examples import _common, vignette_toy
+
+    _card()
+    sweep.chromatic_sweeps.launches = 0
+    s = vignette_toy.main(["--quick", "--out", str(tmp_path)])
+    assert s["iterations_run"] > 0
+    assert sweep.chromatic_sweeps.launches == s["iterations_run"]
+    assert _common.all_finite(s)
+    assert s["device"].startswith(torch.cuda.get_device_name(0))
+    assert len(s["control_rhat_V1"]) == 5
+
+
+@pytest.mark.gpu
 def test_sweep_parity_preflight_on_card():
     """The bench's preflight at 3 chains: the kernel's zero-noise sweeps of
     chain 0 against the twin's within 2e-3 * max(1, |f|_inf)."""

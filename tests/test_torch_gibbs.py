@@ -36,14 +36,20 @@ STATE_FIELDS = ("beta_0", "beta", "log_scale", "log_noise_variance", "shape",
                 "prop_m2", "prop_count")
 
 
-def _problem(p_locs, seed=3, n=300, family="exponential_isotropic"):
+def _problem(p_locs, seed=3, n=300, family="exponential_isotropic",
+             p_obs=0):
+    """A fit of nngp_tpu with ``p_locs`` location covariates (the
+    interweaved β branch) and ``p_obs`` observation covariates (X_obs,
+    interweaving off)."""
     rng = np.random.default_rng(seed)
     locs = rng.uniform(size=(n, 2))
     X = ({f"x{j}": rng.normal(size=n) for j in range(p_locs)}
          if p_locs else None)
+    X_obs = ({f"o{j}": rng.normal(size=n) for j in range(p_obs)}
+             if p_obs else None)
     y = rng.normal(size=n) + locs[:, 0]
-    mc = nngp_tpu.initialize(locs, y, X_locs=X, m=5, n_chains=C, seed=seed,
-                             stationary_covfun=family)
+    mc = nngp_tpu.initialize(locs, y, X_locs=X, X_obs=X_obs, m=5,
+                             n_chains=C, seed=seed, stationary_covfun=family)
     return mc
 
 
@@ -160,6 +166,24 @@ def _run_both(mc, its, iter_start, am_warm=False, states=None):
 @pytest.mark.parametrize("p_locs", [0, 2])
 def test_one_iteration_matches_jax(p_locs):
     _run_both(_problem(p_locs), its=[0], iter_start=0)
+
+
+@pytest.mark.parametrize("family", ["exponential_scaledim",
+                                    "exponential_spacetime"])
+@pytest.mark.parametrize("p_locs", [0, 2])
+def test_family_one_iteration_matches_jax(family, p_locs):
+    """The two families of the synthetic-families example: their per-
+    dimension ranges (two shape parameters) through both MH blocks."""
+    _run_both(_problem(p_locs, family=family), its=[0], iter_start=0)
+
+
+def test_x_obs_one_iteration_matches_jax():
+    """The vignette's negative control: the regressors as X_obs, so β is
+    drawn without interweaving (no location covariates)."""
+    mc = _problem(0, p_obs=2)
+    assert len(mc.design.locs_cols) == 0
+    assert np.asarray(mc.states.beta).shape[1] == 2
+    _run_both(mc, its=[0], iter_start=0)
 
 
 @pytest.mark.parametrize("p_locs,am_warm,iter_start",

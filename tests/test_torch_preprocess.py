@@ -31,13 +31,21 @@ def _np(t):
 
 
 @pytest.mark.parametrize("family", ["exponential_isotropic", "exponential_sphere",
-                                    "matern_isotropic", "matern_sphere"])
+                                    "matern_isotropic", "matern_sphere",
+                                    "exponential_scaledim",
+                                    "exponential_spacetime"])
 def test_initialize_bit_identical(family):
     locs, y, X = _problem(family)
     kw = dict(X_locs=X, m=5, n_chains=2, seed=7, stationary_covfun=family)
     ref = nngp_tpu.initialize(locs, y, **kw)
     mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
                                    **kw)
+    assert_same_setup(mc, ref)
+
+
+def assert_same_setup(mc, ref):
+    """The port's fit ``mc`` and nngp_tpu's ``ref`` from one initialize
+    call: graph tables, model data and chain states bit for bit."""
     g, rg = mc.graph, ref.graph
     for name in ("NNarray", "nn_mask", "nn_dist2", "kernel_coords",
                  "pair_edge_id", "nbr_sites", "nbr_edge", "nbr_mask",
