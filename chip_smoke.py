@@ -103,12 +103,33 @@ with a nonzero exit and no "ok" line:
                   iterations); its JSON line checked as
                   tests/test_bench_smoke.py checks bench.py's, and ESS/s,
                   ms/iteration and the baseline's it/s printed
+ 18. audits       the numeric audits of nngp_tpu_torch/experiments at the
+                  synthetic Heavy-metals width (ratio_audit at 8
+                  proposals, factor_probe, cotransform_probe, op_probe,
+                  matern_probe's two layouts): each headline figure (the
+                  rms of ratio_audit's four errors, |logdet_ratio_err|,
+                  |llr_impact_vs_full_oracle|, |sum_err|, each layout's
+                  |proposal_logdet_diff_err|) finite and at most max(3 x
+                  the JAX script's figure on the CPU on the same geometry,
+                  1e-3), printed beside it
+ 19. bigN         nngp_tpu_torch/experiments/bigN.py at 250,000 uniform
+                  sites (its 500,000 are cut to fit the time limit),
+                  middle-out ordering, exponential_isotropic, 3
+                  chains: initialize by host stage, one warm and two timed
+                  cycles of 25 iterations (one sweep-kernel launch an
+                  iteration), the level rows, colours, largest degree,
+                  the graph's bytes on the card and the peak allocation;
+                  then the sweep kernel against its plain version on that
+                  plan at 3 chains (tolerance and times as in phase 5) and
+                  a profile of 5 iterations (each block's device span and
+                  host time, the level solve's share, the card's idle
+                  share; experiments/sweep_bench.py)
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's launches from zero and needs exactly one per
 iteration; halo mode needs one per colour step that has a site of the
 rank; the bench phase needs one per iteration of its legs plus the
-preflight's one.
+preflight's one.  The audits launch no hand-written kernel.
 
 The line before last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
@@ -144,6 +165,14 @@ MATERN_THETA = (0.006120802718214691, 0.75)
 MATERN_THETA_P = (0.006120802718214691 * 1.02, 0.7525)
 LOGDET_TOL = 1e-2   # proposal log-det difference, card against float64
 N_PREDICT = 2000
+# audits: each headline figure <= max(AUDIT_FACTOR x the JAX script's figure
+# on the CPU on the same synthetic geometry, AUDIT_FLOOR)
+AUDIT_FACTOR, AUDIT_FLOOR = 3.0, 1e-3
+AUDIT_PROPOSALS = 8
+# bigN's sites here: at 500,000 its host initialize alone takes ~360 s, and
+# the smoke would end near its 1,200 s limit; the 500k run is
+# python -m nngp_tpu_torch.experiments.bigN (records/bigN_h100.jsonl)
+BIGN_SITES, BIGN_ITERS = 250_000, 25
 
 
 def phase(name, msg, t0):
@@ -202,17 +231,17 @@ def small_parity(dev, family="exponential_sphere"):
     return worst
 
 
-def kernel_vs_plain(mc):
-    """The sweep kernel against its plain version at the main path's shapes,
-    3 and 96 chains (the 3 initial states tiled), zero and injected noise,
-    repeat calls bit for bit; then median times (sweep_bench.time_case)."""
+def kernel_vs_plain(mc, chains=SWEEP_CHAINS):
+    """The sweep kernel against its plain version on ``mc``'s plan at
+    ``chains`` (the initial states tiled), zero and injected noise, repeat
+    calls bit for bit; then median times (sweep_bench.time_case)."""
     import torch
 
     from nngp_tpu_torch.experiments import sweep_bench
     from nngp_tpu_torch.ops import sweep
 
     out = {"max_abs_err": 0.0}
-    for C in SWEEP_CHAINS:
+    for C in chains:
         for zero in (True, False):
             case = sweep_bench.sweep_case(mc, C, zero_noise=zero)
             got = case["call"](case["w0"].clone())
@@ -973,6 +1002,130 @@ def check_bench_line(result):
         raise RuntimeError(f"bench: no usable lean leg in {legs}")
 
 
+def _audit_figures():
+    """(name, audit, path into its record) of each headline figure."""
+    from nngp_tpu_torch.experiments import ratio_audit
+
+    return ([(f"ratio_audit {k} rms", "ratio_audit", ("summary", k, "rms"))
+             for k in ratio_audit.KEYS]
+            + [("factor_probe |logdet_ratio_err|", "factor_probe",
+                ("logdet_ratio_err",)),
+               ("cotransform_probe |llr_impact_vs_full_oracle|",
+                "cotransform_probe", ("llr_impact_vs_full_oracle",)),
+               ("op_probe |sum_err|", "op_probe", ("sum_err",))]
+            + [(f"matern_probe {lab} |proposal_logdet_diff_err|",
+                "matern_probe", (lab, "proposal_logdet_diff_err"))
+               for lab in ("hm_matern_sphere", "synthetic_matern_iso")])
+
+
+def _figure(rec, path):
+    for k in path:
+        rec = rec[k]
+    return abs(rec)
+
+
+def audits(dev, locs, y, X):
+    """The five numeric audits (nngp_tpu_torch/experiments) on the card at
+    the synthetic Heavy-metals width, ratio_audit at AUDIT_PROPOSALS
+    proposals; each headline figure against max(AUDIT_FACTOR x the JAX
+    script's figure on the CPU on the same geometry (records/
+    *_jax_cpu_synthetic.json), AUDIT_FLOOR), synthetic_matern_iso also
+    against experiments/matern_probe_cpu.json (the same seeded layout).
+    Fails on a figure that is not finite or breaks its bound; returns
+    (rows, seconds by audit)."""
+    import os
+
+    import numpy as np
+
+    from nngp_tpu_torch.examples._common import all_finite
+    from nngp_tpu_torch.experiments import (_common, cotransform_probe,
+                                            factor_probe, matern_probe,
+                                            op_probe, ratio_audit)
+
+    recs, secs = {}, {}
+    t = time.perf_counter()
+    recs["ratio_audit"] = ratio_audit.audit(locs, y, X, AUDIT_PROPOSALS, dev,
+                                            {})
+    secs["ratio_audit"] = time.perf_counter() - t
+    t = time.perf_counter()
+    graph, NN, maps = _common.sphere_graph(locs, factor_probe.COVFUN)
+    secs["graph"] = time.perf_counter() - t
+    t = time.perf_counter()
+    recs["factor_probe"] = factor_probe.probe(graph, dev, {})
+    secs["factor_probe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    recs["cotransform_probe"] = cotransform_probe.probe(graph, NN, maps.locs,
+                                                        y, dev, {})
+    secs["cotransform_probe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    rng = np.random.default_rng(0)
+    recs["op_probe"] = op_probe.probe(
+        graph, NN, y, rng, dev, op_probe.op_accuracy(rng, dev, {}))
+    secs["op_probe"] = time.perf_counter() - t
+    t = time.perf_counter()
+    recs["matern_probe"] = matern_probe.probe(locs, dev, {})
+    secs["matern_probe"] = time.perf_counter() - t
+
+    def read(*parts):
+        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               *parts)) as f:
+            return json.load(f)
+
+    jax = {name: read("nngp_tpu_torch", "experiments", "records",
+                      f"{name}_jax_cpu_synthetic.json") for name in recs}
+    old = read("experiments", "matern_probe_cpu.json")
+    out, bad = [], []
+    for name, script, path in _audit_figures():
+        card = _figure(recs[script], path)
+        refs = [("JAX CPU synthetic", _figure(jax[script], path))]
+        if path[0] == "synthetic_matern_iso":
+            refs.append(("experiments/matern_probe_cpu.json",
+                         _figure(old, path)))
+        for label, ref in refs:
+            bound = max(AUDIT_FACTOR * ref, AUDIT_FLOOR)
+            ok = card == card and card <= bound
+            out.append((name, card, label, ref, bound, ok))
+            print(f"  {name}: card {card:.3e}, {label} {ref:.3e}, bound "
+                  f"{bound:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                bad.append(name)
+    for script, rec in recs.items():
+        if not all_finite(rec):
+            bad.append(f"{script}: a figure is not finite")
+    if bad:
+        raise RuntimeError("audits: " + "; ".join(bad))
+    return out, secs
+
+
+def big_n(dev, td, n, halo_plan=False):
+    """bigN (nngp_tpu_torch/experiments/bigN.py) at ``n`` sites on the card:
+    initialize, one warm and two timed cycles of BIGN_ITERS iterations at 3
+    chains, the sweep kernel launched once an iteration; with ``halo_plan``
+    the D = 8 plan (bigN's ``--halo-plan``); its JSON line, appended to
+    ``td``/bigN.jsonl;
+    then the kernel against its plain twin on that plan (3 chains) and a
+    profile of 5 iterations (sweep_bench.profile_iteration: each block's
+    device span and host time, the card's idle share).  Returns (entry,
+    kernel checks and times, profile)."""
+    import os
+
+    from nngp_tpu_torch.experiments import _common, bigN, sweep_bench
+
+    args = bigN.parse_args(["--n", str(n), "--iters", str(BIGN_ITERS),
+                            "--out", os.path.join(td, "bigN.jsonl")]
+                           + ["--halo-plan"] * halo_plan)
+    _, entry = _common.setup(args)
+    mc = bigN.measure(args, dev, entry)
+    want = 3 * args.iters
+    if entry["k1_launches"] != want or entry["iterations"] != want:
+        raise RuntimeError(f"bigN: {entry['k1_launches']} sweep kernel "
+                           f"launches in {entry['iterations']} iterations, "
+                           f"expected {want}")
+    bigN.append_line(args.out, entry)
+    kv = kernel_vs_plain(mc, chains=(3,))
+    return entry, kv, sweep_bench.profile_iteration(mc)
+
+
 GATHER_KERNELS = (
     ("gather_sweeps", "nngp_tpu_torch/csrc/gather_sweep.cu",
      "experiments/gather_bench.py:92"),
@@ -1259,18 +1412,50 @@ def main():
           f"sweep kernel launches {bench_launches}", t)
     print("  " + json.dumps(result))
 
+    t = time.perf_counter()
+    rows, secs = audits(dev, locs, y, X)
+    phase("audits", f"{len(rows)} figures within max({AUDIT_FACTOR:g} x the "
+          f"JAX CPU figure, {AUDIT_FLOOR:g}); seconds: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in secs.items()), t)
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        big, bk, prof = big_n(dev, td, BIGN_SITES)
+    solve = prof["blocks"]["level_solve"]
+    phase("bigN", f"n={big['n']}, 3 chains: setup {big['setup_s']} s "
+          + json.dumps(big["setup_timings"]) + f", first cycle "
+          f"{big['compile_s']} s, {big['ms_per_iter']} ms/iteration "
+          f"({big['it_per_s']} it/s), sweep kernel launches "
+          f"{big['k1_launches']}; colours {big['colours']}, level rows "
+          f"{big['level_rows']}, largest degree {big['max_degree']}, graph "
+          f"{big['graph_device_bytes'] / 2**20:.1f} MiB on the card, peak "
+          f"allocated {big['max_memory_allocated'] / 2**30:.2f} GiB; "
+          f"{bk['shape']}: kernel {bk[3]['ms']:.4f} ms, plain "
+          f"{bk[3]['plain_ms']:.3f} ms; profile: bare loop "
+          f"{prof['loop_ms']:.2f} ms/iteration, level solve "
+          f"{solve['host_ms']:.2f} ms host ({solve['device_ms']:.2f} device) "
+          f"= {100 * solve['host_ms'] / prof['loop_ms']:.1f} %, card idle "
+          + ("not measured" if prof["idle_share"] is None
+             else f"{100 * prof['idle_share']:.1f} %"), t)
+    print("  " + json.dumps(prof), flush=True)
+
     print(json.dumps({"kernels": [{
         "name": "chromatic_sweeps", "route": "cuda",
         "source": "nngp_tpu_torch/csrc/chromatic_sweep.cu",
         "replaces": "nngp_tpu/ops/pallas_sweep.py:159",
-        "launches": launches + ex_launches, "max_abs_err": kv["max_abs_err"],
+        "launches": launches + ex_launches + big["k1_launches"],
+        "max_abs_err": max(kv["max_abs_err"], bk["max_abs_err"]),
         "ms": kv[3]["ms"], "plain_ms": kv[3]["plain_ms"],
         "bound_ms": kv[3]["bound_ms"], "bound_by": kv[3]["bound_by"],
         "floor_ms": kv[3]["barriers_ms"], "library_ms": None,
         "halo": f"halo mode launches it once a colour step a rank: "
                 f"{halo_launches} launches in 25 iterations of a 1 x 1 mesh",
-        "examples": f"launches: {launches} on the main path and "
-                    f"{ex_launches} in the examples phase"}
+        "examples": f"launches: {launches} on the main path, "
+                    f"{ex_launches} in the examples phase and "
+                    f"{big['k1_launches']} in the bigN phase",
+        "bigN": {"n": big["n"], "chains": 3, **{
+            k: bk[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+            "floor_ms": bk[3]["barriers_ms"]}}
         ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))

@@ -65,19 +65,28 @@ def np_vecchia_linv(coords, NN, covfun, natural):
     safe = np.maximum(NN, 0)
     pts = np.asarray(coords, dtype=np.float64)[safe]
     K = np_correlation(covfun, pts, natural)
-    valid = mask[:, :, None] & mask[:, None, :]
-    K = np.where(valid, K, np.eye(k)[None])
     if k == 1:
         return np.ones((NN.shape[0], 1))
+    return np_linv_rows_from_K(
+        K, mask, 1e-5 if covfun.startswith("matern") else 1e-12)[0]
+
+
+def np_linv_rows_from_K(K, mask, d_floor):
+    """(rows [n, m+1], conditional variances d [n]) from neighbour-set
+    correlations K [n, m+1, m+1] and the validity mask [n, m+1] (bool or
+    0/1): the float64 twin of ops/vecchia.py:linv_rows_from_K."""
+    mask = np.asarray(mask) > 0
+    k = K.shape[-1]
+    valid = mask[:, :, None] & mask[:, None, :]
+    K = np.where(valid, K, np.eye(k)[None])
     Knn = K[:, 1:, 1:]
     kni = K[:, 1:, 0]
     L = np.linalg.cholesky(Knn)
     u = np.linalg.solve(L, kni[..., None])[..., 0]
-    d = np.maximum(K[:, 0, 0] - (u * u).sum(-1),
-                   1e-5 if covfun.startswith("matern") else 1e-12)
+    d = np.maximum(K[:, 0, 0] - (u * u).sum(-1), d_floor)
     b = np.linalg.solve(np.transpose(L, (0, 2, 1)), u[..., None])[..., 0]
     out = np.concatenate([1 / np.sqrt(d)[:, None], -b / np.sqrt(d)[:, None]], 1)
-    return out * mask
+    return out * mask, d
 
 
 def np_sparse_L(linv, NN):

@@ -30,13 +30,30 @@ def _np(t):
     return t.cpu().numpy() if isinstance(t, torch.Tensor) else np.asarray(t)
 
 
-@pytest.mark.parametrize("family", ["exponential_isotropic", "exponential_sphere",
-                                    "matern_isotropic", "matern_sphere",
-                                    "exponential_scaledim",
-                                    "exponential_spacetime"])
-def test_initialize_bit_identical(family):
+FAMILIES = ["exponential_isotropic", "exponential_sphere", "matern_isotropic",
+            "matern_sphere", "exponential_scaledim", "exponential_spacetime"]
+# every ordering reorder_locations offers, in the plane and on the sphere
+# (the families above use the default, maxmin)
+ORDERINGS = [("exponential_isotropic", "middleout"),
+             ("exponential_sphere", "middleout"),
+             ("exponential_isotropic", "random"),
+             ("exponential_isotropic", ("coord", 2)),
+             ("exponential_isotropic", ("dist_to_point", [0.3, 0.6])),
+             ("exponential_sphere", ("dist_to_point", [-90.0, 40.0]))]
+
+
+def _id(r):
+    return r if isinstance(r, str) else r[0] + (str(r[1]) if r[0] == "coord"
+                                                else "")
+
+
+@pytest.mark.parametrize("family,reordering", [
+    pytest.param(f, "maxmin", id=f) for f in FAMILIES] + [
+    pytest.param(f, r, id=f"{f}-{_id(r)}") for f, r in ORDERINGS])
+def test_initialize_bit_identical(family, reordering):
     locs, y, X = _problem(family)
-    kw = dict(X_locs=X, m=5, n_chains=2, seed=7, stationary_covfun=family)
+    kw = dict(X_locs=X, m=5, n_chains=2, seed=7, stationary_covfun=family,
+              reordering=reordering)
     ref = nngp_tpu.initialize(locs, y, **kw)
     mc = nngp_tpu_torch.initialize(locs, y, device="cpu", verbose=False,
                                    **kw)
