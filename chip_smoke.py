@@ -7,7 +7,7 @@ Phases, each printed with its result and time; any failure ends the run
 with a nonzero exit and no "ok" line:
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc builds the three CUDA sources of csrc/, all at once
+  2. build        nvcc builds the four CUDA sources of csrc/, all at once
   3. small parity 3 Gibbs iterations of a 400-site problem on the card
                   against the same iterations on the CPU (whose path the
                   tests hold against nngp_tpu), same injected draws
@@ -63,24 +63,41 @@ with a nonzero exit and no "ok" line:
                   build's proposal log-det difference at the Matérn probe's
                   (range, nu) against the float64 oracle (tolerance 1e-2),
                   then run 25 iterations and estimate the smoothness
- 12. determinism  the main path twice from seed 1 (initialize -> run, 10
+ 12. factor rows  the factor-rows kernel (csrc/factor_rows.cu) against its
+                  plain twin at the main path's shapes (the Heavy-metals K
+                  at 3 and 96 chains, matern_sphere's at 3): max |a - b| /
+                  (|b| + 1e-3) at most 1e-4 and the count of differing
+                  elements; median ms of the kernel, the twin and
+                  PyTorch's batched solvers (cholesky_ex, two
+                  solve_triangular) beside the byte bound; its log-diagonal
+                  error against the float64 factor of the same K at
+                  factor_probe's and matern_probe's Heavy-metals states,
+                  at most 1.5 x the jitted JAX script's CPU figure
+ 13. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
+                  experiments by python -m, all at once, at cut sizes:
+                  grb_guard, hm_mpsrf on the main path's fit, hm_crossval
+                  (400 sites, 1 engine cycle of 40, 60 oracle
+                  iterations), am_ab's three arms (8k sites, 2 x 10),
+                  halo_overhead_table (20,000 sites, 8 ranks): records
+                  finite, every sampler run launching both kernels
+ 14. determinism  the main path twice from seed 1 (initialize -> run, 10
                   iterations, 3 chains, full width): states and records bit
                   for bit, the count of differing elements 0
- 13. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
+ 15. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
                   2 iterations x 2 chains of the 96-site toy, records finite
- 14. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
+ 16. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
                   K = 1) saved and loaded twice, then run for 25 iterations
                   with run(mc, mesh=...) and with run(mc): the count of
                   differing state and record elements 0; collective_grb over
                   NCCL against the host Gelman_Rubin_Brooks, rtol 1e-10
- 15. two ranks    a 6-chain fit at full width saved once; then
+ 17. two ranks    a 6-chain fit at full width saved once; then
                   python -m nngp_tpu_torch.parallel.resume on it for 25
                   iterations as 1 process (6 chains) and twice as 2 gloo
                   ranks sharing the card (3 chains each): the ranks hold the
                   same R-hat and fit digest, both 2-rank launches the same
                   digest, every rank one sweep-kernel launch an iteration;
                   ms per iteration of each
- 16. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
+ 18. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
                   on the main path's fit: every colour step of both D = 2
                   owned sub-plans on the fit's sweep inputs, bit for bit
                   with one launch of the whole plan and within TOL_REL of
@@ -95,7 +112,7 @@ with a nonzero exit and no "ok" line:
                   each rank's ms per iteration, exchanges and bytes per
                   iteration and the plan's overlap; then the plan at scale
                   (host only): 100,000 sites over 8 ranks, overlap < 10 %
- 17. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+ 19. bench        the bench's path (nngp_tpu_torch/bench.py) through its
                   functions at full width with short fixed windows: the
                   sweep kernel's parity preflight, the 96-chain leg (K = 3,
                   lean records, 100 warmup + 100 timed iterations), the
@@ -103,7 +120,7 @@ with a nonzero exit and no "ok" line:
                   iterations); its JSON line checked as
                   tests/test_bench_smoke.py checks bench.py's, and ESS/s,
                   ms/iteration and the baseline's it/s printed
- 18. audits       the numeric audits of nngp_tpu_torch/experiments at the
+ 20. audits       the numeric audits of nngp_tpu_torch/experiments at the
                   synthetic Heavy-metals width (ratio_audit at 8
                   proposals, factor_probe, cotransform_probe, op_probe,
                   matern_probe's two layouts): each headline figure (the
@@ -111,8 +128,11 @@ with a nonzero exit and no "ok" line:
                   |llr_impact_vs_full_oracle|, |sum_err|, each layout's
                   |proposal_logdet_diff_err|) finite and at most max(3 x
                   the JAX script's figure on the CPU on the same geometry,
-                  1e-3), printed beside it
- 19. bigN         nngp_tpu_torch/experiments/bigN.py at 250,000 uniform
+                  1e-3), printed beside it; the factor's log-diagonal
+                  errors against the float64 Cholesky of the same K
+                  (factor_probe's two states, matern_probe's two layouts)
+                  at most 1.5 x the jitted JAX script's
+ 21. bigN         nngp_tpu_torch/experiments/bigN.py at 150,000 uniform
                   sites (its 500,000 are cut to fit the time limit),
                   middle-out ordering, exponential_isotropic, 3
                   chains: initialize by host stage, one warm and two timed
@@ -129,13 +149,15 @@ Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's launches from zero and needs exactly one per
 iteration; halo mode needs one per colour step that has a site of the
 rank; the bench phase needs one per iteration of its legs plus the
-preflight's one.  The audits launch no hand-written kernel.
+preflight's one.  Every run also counts the factor-rows kernel from zero
+and needs one launch for the cycle's factor and two an ASIS pair.
 
 The line before last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
 """
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -164,15 +186,23 @@ MM_RAGGED = ((1, 4, 4), (65, 1028, 132), (512, 1024, 128), (130, 36, 260),
 MATERN_THETA = (0.006120802718214691, 0.75)
 MATERN_THETA_P = (0.006120802718214691 * 1.02, 0.7525)
 LOGDET_TOL = 1e-2   # proposal log-det difference, card against float64
+# factor rows kernel against its twin: |a - b| / (|b| + 1e-3), the CPU
+# test's bound against jitted nngp_tpu (tests/test_torch_factor_rows.py)
+FACTOR_TOL_REL = 1e-4
+# its log-diagonal error against the float64 factor of the same K: at most
+# this times the jitted JAX script's figure on the CPU
+FACTOR_LOGDIAG = 1.5
 N_PREDICT = 2000
 # audits: each headline figure <= max(AUDIT_FACTOR x the JAX script's figure
 # on the CPU on the same synthetic geometry, AUDIT_FLOOR)
 AUDIT_FACTOR, AUDIT_FLOOR = 3.0, 1e-3
 AUDIT_PROPOSALS = 8
 # bigN's sites here: at 500,000 its host initialize alone takes ~360 s, and
-# the smoke would end near its 1,200 s limit; the 500k run is
-# python -m nngp_tpu_torch.experiments.bigN (records/bigN_h100.jsonl)
-BIGN_SITES, BIGN_ITERS = 250_000, 25
+# at 250,000 130 s, with the whole smoke at 700-960 s of its 1,200 s limit
+# by host; the 500k run is python -m nngp_tpu_torch.experiments.bigN
+# (records/bigN_h100.jsonl)
+BIGN_SITES, BIGN_ITERS = 150_000, 25
+REPO = os.path.dirname(os.path.abspath(__file__))
 
 
 def phase(name, msg, t0):
@@ -501,25 +531,35 @@ def probe_yardsticks(dev):
 
 
 def run_counted(mc, n_iterations, per_iteration=1, **kw):
-    """``run`` with the sweep kernel's launches counted from zero; fails
-    unless every iteration launched it ``per_iteration`` times and every
-    state is finite."""
+    """``run`` with the sweep and factor-rows kernels' launches counted from
+    zero; fails unless every iteration launched the sweep kernel
+    ``per_iteration`` times, the factor rows kernel ran once for the cycle's
+    factor and twice an ASIS pair (``run_counted.factor_launches``), and
+    every state is finite."""
     import torch
 
     import nngp_tpu_torch
     from nngp_tpu_torch.ops import sweep
+    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K
 
     start = mc.iterations
     t = time.perf_counter()
     sweep.chromatic_sweeps.launches = 0
+    linv_rows_from_K.launches = 0
     mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=n_iterations,
                             **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = sweep.chromatic_sweeps.launches
+    run_counted.factor_launches = linv_rows_from_K.launches
     if launches != n_iterations * per_iteration:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
+    want = 1 + 2 * kw.get("covparams_steps", 1) * n_iterations
+    if run_counted.factor_launches != want:
+        raise RuntimeError(f"run launched the factor rows kernel "
+                           f"{run_counted.factor_launches} times in "
+                           f"{n_iterations} iterations, expected {want}")
     if mc.iterations != start + n_iterations:
         raise RuntimeError(f"iterations {start} -> {mc.iterations}, not "
                            f"+{n_iterations}")
@@ -536,7 +576,6 @@ def examples(td):
     one an iteration it ran, and a finite summary.  (name, summary,
     seconds, launches) for each, in order; the ms per iteration printed is
     the example's own (its run calls, setup excluded)."""
-    import os
 
     import torch
 
@@ -603,11 +642,214 @@ def matern_logdet(mc):
     return card, oracle
 
 
+def _library_factor_rows(K, mask, d_floor):
+    """The factor rows by PyTorch's batched solvers (the yardstick, used
+    nowhere in the port): the padded slots forced to identity,
+    ``cholesky_ex`` of the [B, m, m] blocks, two ``solve_triangular``, then
+    d, rsqrt and the row algebra."""
+    import torch
+
+    k = K.shape[-1]
+    valid2 = mask[:, :, None] * mask[:, None, :]
+    eye = torch.eye(k, device=K.device)
+
+    def call():
+        Ke = (K * valid2 + eye * (1.0 - valid2)).reshape(-1, k, k)
+        L, _ = torch.linalg.cholesky_ex(Ke[:, 1:, 1:])
+        u = torch.linalg.solve_triangular(L, Ke[:, 1:, :1], upper=False)
+        d = torch.clamp_min(Ke[:, 0, 0] - (u * u).sum((-2, -1)), d_floor)
+        b = torch.linalg.solve_triangular(L.transpose(-1, -2), u, upper=True)
+        inv = torch.rsqrt(d)[:, None]
+        rows = torch.cat([inv, -b[..., 0] * inv], -1).view(K.shape[:-1])
+        return rows * mask
+    return call
+
+
+def _read_json(*parts):
+    """A JSON file of this checkout, by its path's parts."""
+    with open(os.path.join(REPO, *parts)) as f:
+        return json.load(f)
+
+
+def factor_rows(mc, mm):
+    """The factor-rows kernel (csrc/factor_rows.cu) against its plain twin
+    on the card at the main path's shapes: the Heavy-metals graph's K from
+    its states tiled to 3 and 96 chains, and matern_sphere's at its
+    states.  For each: the max relative row difference |a - b| / (|b| +
+    1e-3) (at most FACTOR_TOL_REL), the count of differing elements, the
+    median ms of the kernel, the twin and the library's batched solvers
+    (21 calls), the byte bound.  Then the kernel's log-diagonal error
+    against the float64 factor of the same K at factor_probe's and
+    matern_probe's Heavy-metals states, at most FACTOR_LOGDIAG x the JAX
+    scripts' jitted figure on the CPU (records/*_jax_cpu_synthetic.json).
+    Returns (cases, log-diagonal rows)."""
+    import numpy as np
+    import torch
+
+    from nngp_tpu_torch.experiments import factor_probe, timing
+    from nngp_tpu_torch.experiments._oracles import (f64_linv_from_K,
+                                                     f64_linv_logdiag)
+    from nngp_tpu_torch.experiments.sweep_bench import tile_states
+    from nngp_tpu_torch.ops import vecchia as V
+    from nngp_tpu_torch.ops.covariance import (correlation_from_sqdist,
+                                               shape_transform)
+
+    def names(fit):
+        return fit.space_time_model["covfun"]["shape_params"]
+
+    cases = {f"exponential_sphere {C} chains": (
+        mc.graph, shape_transform(names(mc), tile_states(mc.states, C).shape))
+        for C in (3, 96)}
+    cases["matern_sphere 3 chains"] = (
+        mm.graph, shape_transform(names(mm), mm.states.shape))
+    out = {}
+    for label, (g, nat) in cases.items():
+        K = correlation_from_sqdist(g.covfun, g.nn_dist2, nat).contiguous()
+        mask, df = g.nn_mask, g.d_floor
+        kernel = V.linv_rows_cuda(K, mask, df)
+        twin = V.linv_rows_reference(K, mask, df)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(kernel).all()):
+            raise RuntimeError(f"factor rows, {label}: non-finite rows")
+        rel = float(((kernel - twin).abs() / (twin.abs() + 1e-3)).max())
+        differ = int((kernel != twin).sum())
+        nbytes = _nbytes(K, mask, kernel)
+        bound, by = _bound(nbytes)
+        out[label] = {
+            "shape": list(K.shape), "max_rel": rel, "differ": differ,
+            "numel": kernel.numel(),
+            "max_abs_err": float((kernel - twin).abs().max()),
+            "ms": timing.median_ms(lambda: V.linv_rows_cuda(K, mask, df), 21),
+            "plain_ms": timing.median_ms(
+                lambda: V.linv_rows_reference(K, mask, df), 21),
+            "library_ms": timing.median_ms(
+                _library_factor_rows(K, mask, df), 21),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes}
+        print(f"  {label}: K {list(K.shape)}, kernel vs twin max rel "
+              f"{rel:.3e} <= {FACTOR_TOL_REL:g}, {differ} of "
+              f"{kernel.numel()} elements differ; median ms kernel "
+              f"{out[label]['ms']:.4f}, twin {out[label]['plain_ms']:.3f}, "
+              f"library {out[label]['library_ms']:.3f}, bound {bound:.4f} "
+              f"({nbytes / 1e6:.1f} MB)", flush=True)
+        if not rel <= FACTOR_TOL_REL:
+            raise RuntimeError(f"factor rows, {label}: kernel vs twin max "
+                               f"rel {rel:.3e} > {FACTOR_TOL_REL}")
+        del K, kernel, twin
+        torch.cuda.empty_cache()
+
+    records = ("nngp_tpu_torch", "experiments", "records")
+    jf = _read_json(*records, "factor_probe_jax_cpu_synthetic.json")
+    jm = _read_json(*records, "matern_probe_jax_cpu_synthetic.json")
+    d2g = mm.graph.nn_dist2.cpu().numpy()
+    sq = d2g.sum(-1)[mm.graph.nn_mask.cpu().numpy() > 0]
+    rho = 2.5 * float(np.sqrt(np.median(sq[sq > 0])))
+    checks = (
+        ("factor_probe theta", mc.graph, [factor_probe.RHO], f64_linv_from_K,
+         jf["logdiag_chol_theta"]["max"]),
+        ("matern_probe hm_matern_sphere", mm.graph, [rho, 0.75],
+         f64_linv_logdiag, jm["hm_matern_sphere"]["logdiag_err_vs_devK"]["max"]))
+    logdiag = []
+    for label, g, nat, oracle, jax_max in checks:
+        nat = torch.tensor([nat], dtype=torch.float32, device=g.nn_mask.device)
+        K = correlation_from_sqdist(g.covfun, g.nn_dist2, nat).contiguous()
+        rows = V.linv_rows_cuda(K, g.nn_mask, g.d_floor)
+        K64 = K[0].double().cpu().numpy()
+        mask = g.nn_mask.cpu().numpy()
+        if oracle is f64_linv_from_K:
+            ld64 = np.log(oracle(K64, mask)[0][:, 0])
+        else:
+            ld64 = oracle(K64, mask)[0]
+        err = float(np.abs(np.log(rows[0, :, 0].double().cpu().numpy())
+                           - ld64).max())
+        bound = FACTOR_LOGDIAG * jax_max
+        logdiag.append((label, err, jax_max, bound))
+        print(f"  log-diagonal vs float64 of the same K, {label}: kernel "
+              f"{err:.3e}, jitted JAX CPU {jax_max:.3e}, bound {bound:.3e}",
+              flush=True)
+        if not err <= bound:
+            raise RuntimeError(f"factor rows, {label}: log-diagonal error "
+                               f"{err:.3e} > {bound:.3e}")
+    return out, logdiag
+
+
+DIAG_RUNS = (   # (script, arguments): the cut sizes of the diagnostics phase
+    ("grb_guard", ()),
+    ("hm_mpsrf", ("{fit}",)),
+    ("hm_crossval", ("--n", "400", "--engine-cycles", "1",
+                     "--engine-iters", "40", "--iters", "60")),
+    ("am_ab", ("--cycles", "2", "--iters", "10")),
+    ("halo_overhead_table", ("--n", "20000")),
+)
+
+
+def diagnostics(mc, td):
+    """The five diagnostics scripts of nngp_tpu_torch/experiments by python
+    -m on the card, all started at once, at cut sizes (DIAG_RUNS):
+    grb_guard's three cases, hm_mpsrf on the main path's fit (saved here),
+    hm_crossval at 400 of its 700 sites (one engine cycle of 40
+    iterations, 60 oracle iterations), am_ab's three arms on the 8k subset (2 cycles of
+    10 iterations), halo_overhead_table at 20,000 sites over 8 ranks.
+    Fails on a nonzero exit, a record without its keys, a non-finite
+    figure, or a sampler run (hm_crossval, each am_ab arm) whose sweep or
+    factor-rows kernel launched no time.  Returns {script: (record,
+    seconds)}."""
+    import nngp_tpu_torch
+    from nngp_tpu_torch.examples._common import all_finite
+
+    fit = os.path.join(td, "fit.pkl")
+    nngp_tpu_torch.save(mc, fit)
+    procs = {}
+    for name, args in DIAG_RUNS:
+        out = os.path.join(td, f"{name}.json")
+        cmd = [sys.executable, "-m", f"nngp_tpu_torch.experiments.{name}",
+               *(a.format(fit=fit) for a in args), "--out", out]
+        procs[name] = (subprocess.Popen(cmd, cwd=REPO, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       out, time.perf_counter())
+    done, bad = {}, []
+    for name, (proc, out, t) in procs.items():
+        try:
+            log, _ = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            log, _ = proc.communicate()
+        secs = time.perf_counter() - t
+        if proc.returncode != 0:
+            bad.append(f"{name} exited {proc.returncode}: {log[-1500:]}")
+            continue
+        with open(out) as f:
+            rec = ({"rows": [json.loads(line) for line in f]}
+                   if name == "am_ab" else json.load(f))
+        done[name] = (rec, secs)
+        if not all_finite(rec):
+            bad.append(f"{name}: a figure is not finite")
+    if bad:
+        raise RuntimeError("diagnostics: " + "; ".join(bad))
+    grb, hm = done["grb_guard"][0], done["hm_mpsrf"][0]
+    cv, ab = done["hm_crossval"][0], done["am_ab"][0]["rows"]
+    ho = done["halo_overhead_table"][0]
+    if not grb["A_well_conditioned"]["abs_diff"] < 1e-8:
+        bad.append(f"grb_guard case A: {grb['A_well_conditioned']}")
+    if hm["iterations"] != mc.iterations:
+        bad.append(f"hm_mpsrf read {hm['iterations']} iterations, the fit "
+                   f"has {mc.iterations}")
+    runs = [("hm_crossval", cv)] + [(f"am_ab {r['arm']}", r) for r in ab]
+    if [r["arm"] for r in ab] != ["am", "isotropic", "am_k3"]:
+        bad.append(f"am_ab arms {[r['arm'] for r in ab]}")
+    for label, r in runs:
+        if min(r["kernel_launches"].values()) < 1:
+            bad.append(f"{label}: kernel launches {r['kernel_launches']}")
+    if ho["totals"]["owned_site_updates"] != 2 * ho["n"]:
+        bad.append(f"halo_overhead_table totals {ho['totals']}")
+    if bad:
+        raise RuntimeError("diagnostics: " + "; ".join(bad))
+    return done
+
+
 def predict_parity(dev):
     """predict_field's conditional draws on the card against the CPU: a
     400-site fit run on the card, loaded on both devices from one file, the
     same retained samples and the same normals z at 100 new sites."""
-    import os
     import tempfile
 
     import numpy as np
@@ -650,7 +892,6 @@ def predict_parity(dev):
 
 def save_load(mc, dev):
     """save the fit, load it on the card: states and records bit for bit."""
-    import os
     import tempfile
 
     import numpy as np
@@ -744,7 +985,6 @@ def chains_mesh_parity(mc, dev, td):
     iterations with and without the chains mesh; (differing elements,
     elements, mesh run s, plain run s, launches, collective_grb's largest
     relative difference from the host Gelman_Rubin_Brooks)."""
-    import os
 
     import numpy as np
     import torch
@@ -789,7 +1029,6 @@ def two_ranks(dev, locs, y, X, td):
     """A 6-chain fit saved once, then resumed for 25 iterations by
     ``nngp_tpu_torch.parallel.resume`` as one process and twice as two gloo
     ranks on the card; returns {launch name: per-rank JSON lines}."""
-    import os
 
     import nngp_tpu_torch
     from nngp_tpu_torch.parallel.distributed import launch_local
@@ -824,7 +1063,6 @@ def halo_one_rank(dev, td):
     saved, loaded twice, run for 25 iterations in halo mode and with run();
     (differing elements, elements, halo s, run s, halo launches, run
     launches)."""
-    import os
 
     import torch
     import torch.distributed as dist
@@ -916,7 +1154,6 @@ def halo_two_ranks(dev, td):
     card (``parallel.resume --sites 2``) and by run(); (the ranks' JSON
     lines, the largest scaled state difference, run's ms per
     iteration)."""
-    import os
 
     import torch
 
@@ -1018,6 +1255,16 @@ def _audit_figures():
                for lab in ("hm_matern_sphere", "synthetic_matern_iso")])
 
 
+def _factor_figures():
+    """(name, audit, path) of each factor-build log-diagonal error against
+    the float64 Cholesky of the same float32 K."""
+    return ([(f"factor_probe {t} max", "factor_probe",
+              (f"logdiag_chol_{t}", "max")) for t in ("theta", "theta_prime")]
+            + [(f"matern_probe {lab} logdiag_err_vs_devK max", "matern_probe",
+                (lab, "logdiag_err_vs_devK", "max"))
+               for lab in ("hm_matern_sphere", "synthetic_matern_iso")])
+
+
 def _figure(rec, path):
     for k in path:
         rec = rec[k]
@@ -1033,7 +1280,6 @@ def audits(dev, locs, y, X):
     against experiments/matern_probe_cpu.json (the same seeded layout).
     Fails on a figure that is not finite or breaks its bound; returns
     (rows, seconds by audit)."""
-    import os
 
     import numpy as np
 
@@ -1066,14 +1312,9 @@ def audits(dev, locs, y, X):
     recs["matern_probe"] = matern_probe.probe(locs, dev, {})
     secs["matern_probe"] = time.perf_counter() - t
 
-    def read(*parts):
-        with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                               *parts)) as f:
-            return json.load(f)
-
-    jax = {name: read("nngp_tpu_torch", "experiments", "records",
-                      f"{name}_jax_cpu_synthetic.json") for name in recs}
-    old = read("experiments", "matern_probe_cpu.json")
+    jax = {name: _read_json("nngp_tpu_torch", "experiments", "records",
+                            f"{name}_jax_cpu_synthetic.json") for name in recs}
+    old = _read_json("experiments", "matern_probe_cpu.json")
     out, bad = [], []
     for name, script, path in _audit_figures():
         card = _figure(recs[script], path)
@@ -1089,6 +1330,15 @@ def audits(dev, locs, y, X):
                   f"{bound:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
             if not ok:
                 bad.append(name)
+    for name, script, path in _factor_figures():
+        card, ref = _figure(recs[script], path), _figure(jax[script], path)
+        bound = FACTOR_LOGDIAG * ref
+        ok = card <= bound
+        out.append((name, card, "JAX CPU synthetic", ref, bound, ok))
+        print(f"  {name}: card {card:.3e}, JAX CPU synthetic {ref:.3e}, "
+              f"bound {bound:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(name)
     for script, rec in recs.items():
         if not all_finite(rec):
             bad.append(f"{script}: a figure is not finite")
@@ -1107,7 +1357,6 @@ def big_n(dev, td, n, halo_plan=False):
     profile of 5 iterations (sweep_bench.profile_iteration: each block's
     device span and host time, the card's idle share).  Returns (entry,
     kernel checks and times, profile)."""
-    import os
 
     from nngp_tpu_torch.experiments import _common, bigN, sweep_bench
 
@@ -1149,7 +1398,7 @@ def main():
         return 1
     import nngp_tpu_torch
     from nngp_tpu_torch.experiments import gather_ops
-    from nngp_tpu_torch.ops import _build, sweep
+    from nngp_tpu_torch.ops import _build, sweep, vecchia
     from nngp_tpu_torch.preprocess.coloring import dag_levels
     from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
 
@@ -1164,6 +1413,7 @@ def main():
 
     t = time.perf_counter()
     libs = {"chromatic_sweep": sweep._library,
+            "factor_rows": vecchia._factor_rows_library,
             "gather_sweep": gather_ops._sweep_library,
             "gather_probes": gather_ops._probe_library}
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
@@ -1215,9 +1465,11 @@ def main():
     tab = est["covariance_params"]["GpGp_covparams"]
     if not np.isfinite(tab["table"]).all():
         raise RuntimeError("non-finite covariance estimates")
+    factor_launches = run_counted.factor_launches
     phase("main path", f"run 25 iterations x 3 chains: {run_s:.3f} s = "
           f"{1e3 * run_s / 25:.2f} ms/iteration (cold), sweep kernel "
-          f"launches {launches}", t)
+          f"launches {launches}, factor rows kernel launches "
+          f"{factor_launches}", t)
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(tab["names"], tab["table"])}) + f" columns {tab['columns']}")
@@ -1309,6 +1561,32 @@ def main():
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(m_tab["names"], m_tab["table"])}))
+
+    t = time.perf_counter()
+    fr, fr_logdiag = factor_rows(mc, mm)
+    del mm
+    torch.cuda.empty_cache()
+    phase("factor rows", "kernel within "
+          f"{FACTOR_TOL_REL:g} relative of its twin at " + ", ".join(
+              f"{k} ({v['ms']:.4f} ms, twin {v['plain_ms']:.3f}, library "
+              f"{v['library_ms']:.3f}, bound {v['bound_ms']:.4f})"
+              for k, v in fr.items())
+          + "; log-diagonal within " + ", ".join(
+              f"{e:.3e} <= {b:.3e}" for _, e, _, b in fr_logdiag), t)
+
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        dg = diagnostics(mc, td)
+    cv = dg["hm_crossval"][0]
+    phase("diagnostics", "five scripts by python -m at once: " + ", ".join(
+        f"{k} {secs:.1f} s" for k, (_, secs) in dg.items())
+        + f"; grb_guard A diff {dg['grb_guard'][0]['A_well_conditioned']['abs_diff']:.2e}, "
+        f"hm_mpsrf MPSRF {dg['hm_mpsrf'][0]['mpsrf_ours']}, hm_crossval "
+        f"{cv['engine_iters']} engine iterations (kernel launches "
+        f"{cv['kernel_launches']}), am_ab " + ", ".join(
+            f"{r['arm']} {r['ms_per_iteration']:.1f} ms/iteration"
+            for r in dg["am_ab"][0]["rows"])
+        + f", halo table overlap {dg['halo_overhead_table'][0]['overlap_fraction']}", t)
 
     t = time.perf_counter()
     differ, total = determinism(dev, locs, y, X)
@@ -1415,7 +1693,8 @@ def main():
     t = time.perf_counter()
     rows, secs = audits(dev, locs, y, X)
     phase("audits", f"{len(rows)} figures within max({AUDIT_FACTOR:g} x the "
-          f"JAX CPU figure, {AUDIT_FLOOR:g}); seconds: " + ", ".join(
+          f"JAX CPU figure, {AUDIT_FLOOR:g}), the factor's log-diagonal "
+          f"errors within {FACTOR_LOGDIAG:g} x; seconds: " + ", ".join(
               f"{k} {v:.1f}" for k, v in secs.items()), t)
 
     t = time.perf_counter()
@@ -1456,6 +1735,20 @@ def main():
         "bigN": {"n": big["n"], "chains": 3, **{
             k: bk[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "floor_ms": bk[3]["barriers_ms"]}}
+        ] + [{
+        "name": "factor_rows", "route": "cuda",
+        "source": "nngp_tpu_torch/csrc/factor_rows.cu",
+        "replaces": "nngp_tpu/ops/vecchia.py:83 (linv_rows_from_K, fused "
+                    "by XLA under nngp_tpu/models/gaussian.py:805's jit; "
+                    "not a Pallas kernel)",
+        "launches": factor_launches,
+        **{k: fr["exponential_sphere 3 chains"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "96_chains": {k: fr["exponential_sphere 96 chains"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
+        "matern_sphere": {k: fr["matern_sphere 3 chains"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}}
         ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))

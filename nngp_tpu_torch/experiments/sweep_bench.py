@@ -2,7 +2,7 @@
 Gibbs iteration profiled by block, on one CUDA card.
 
     python -m nngp_tpu_torch.experiments.sweep_bench [--chains 3 96]
-        [--profile] [--json PATH]
+        [--family F] [--profile [CHAINS:K ...]] [--json PATH]
 
 The problem is chip_smoke.py's main path: 64,274 synthetic lon/lat sites
 (``utils/datasets.py``), ``exponential_sphere``, m = 5, 14 location
@@ -13,10 +13,13 @@ time of the Q layout gather that feeds it, the time of its grid barriers
 alone, the plain twin's time (3 chains only) and the least time the card
 could take for the function's bytes and operations (``sweep_bound``).
 
-  --profile   one iteration at 3 chains: the device span and host time of
-              each block (CUDA events around the functions of
+  --profile   one iteration at each CHAINS:K (default 3:1; the states
+              tiled to CHAINS chains, K ASIS pairs): the device span and
+              host time of each block (CUDA events around the functions of
               models/gaussian.py), then torch.profiler over 5 iterations
               for the device time, the launches and the card's idle share
+  --family    the covariance family of the fit (default exponential_sphere;
+              matern_sphere for the Matérn iteration)
 
 Raises without a CUDA card.
 """
@@ -24,6 +27,7 @@ Raises without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import time
 from dataclasses import fields, replace
@@ -139,18 +143,20 @@ BLOCKS = ("_ancillary_step", "vecchia_linv", "level_solve",
           "sweep_inputs", "chromatic_sweeps", "_noise_steps")
 
 
-def _iterations(mc, T, carry=None, seed=0):
-    """T Gibbs iterations of ``mc``'s chains from ``carry`` (None: the
-    fit's states); returns the carry, synchronised."""
+def _iterations(mc, T, carry=None, seed=0, chains=None, steps=1):
+    """T Gibbs iterations of ``mc``'s chains (tiled to ``chains``) with
+    ``steps`` ASIS pairs from ``carry`` (None: the fit's states); returns
+    the carry, synchronised."""
     from nngp_tpu_torch.models import gaussian as G
     from nngp_tpu_torch.ops.covariance import shape_transform
     from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
-    st = mc.states
+    st = mc.states if chains is None else tile_states(mc.states, chains)
     cfg = G.UpdateConfig(
         n_iterations=T,
         shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
-        locs_cols=tuple(int(c) for c in mc.design.locs_cols))
+        locs_cols=tuple(int(c) for c in mc.design.locs_cols),
+        covparams_steps=steps)
     if carry is None:
         zero = torch.zeros_like(st.log_scale)
         carry = (st, vecchia_linv(mc.graph, shape_transform(cfg.shape_names,
@@ -165,15 +171,17 @@ def _iterations(mc, T, carry=None, seed=0):
     return carry
 
 
-def profile_iteration(mc, T=5):
+def profile_iteration(mc, T=5, chains=None, steps=1):
     """Per block of models/gaussian.py: device span (CUDA events) and host
-    time, ms per iteration over T iterations; the bare loop's ms per
-    iteration; torch.profiler's device time, launches and idle share."""
+    time, ms per iteration over T iterations of ``mc``'s states tiled to
+    ``chains`` with ``steps`` ASIS pairs; the bare loop's ms per iteration;
+    torch.profiler's device time, launches and idle share."""
     from nngp_tpu_torch.models import gaussian as G
 
-    carry = _iterations(mc, 3)                      # warm
+    run = functools.partial(_iterations, mc, chains=chains, steps=steps)
+    carry = run(3)                                  # warm
     t = time.perf_counter()
-    carry = _iterations(mc, T, carry, seed=1)
+    carry = run(T, carry, seed=1)
     loop_ms = 1e3 * (time.perf_counter() - t) / T
 
     spans = {name: [] for name in BLOCKS}
@@ -194,7 +202,7 @@ def profile_iteration(mc, T=5):
     try:
         for name, fn in saved.items():
             setattr(G, name, timed(name, fn))
-        carry = _iterations(mc, T, carry, seed=2)
+        carry = run(T, carry, seed=2)
     finally:
         for name, fn in saved.items():
             setattr(G, name, fn)
@@ -209,7 +217,7 @@ def profile_iteration(mc, T=5):
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        _iterations(mc, T, carry, seed=3)
+        run(T, carry, seed=3)
     busy_us, launches, by_name = 0.0, 0, {}
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
@@ -220,7 +228,8 @@ def profile_iteration(mc, T=5):
             by_name[key] = by_name.get(key, 0.0) + us
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     device_ms = busy_us / 1e3 / T if launches else None
-    return {"chains": mc.states.field.shape[0], "loop_ms": loop_ms,
+    return {"family": mc.graph.covfun, "chains": carry[0].field.shape[0],
+            "covparams_steps": steps, "loop_ms": loop_ms,
             "blocks": blocks,
             "profiler_device_ms": device_ms,
             "launches_per_iteration": launches / T,
@@ -231,18 +240,21 @@ def profile_iteration(mc, T=5):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--chains", type=int, nargs="+", default=[3, 96])
-    ap.add_argument("--profile", action="store_true")
+    ap.add_argument("--chains", type=int, nargs="*", default=[3, 96])
+    ap.add_argument("--family", default="exponential_sphere")
+    ap.add_argument("--profile", nargs="*", metavar="CHAINS:K",
+                    help="profile one iteration at each CHAINS:K (default "
+                         "3:1)")
     ap.add_argument("--json", default=None, help="append the lines here")
     a = ap.parse_args(argv)
     dev = timing.cuda_device()
     torch.backends.cuda.matmul.allow_tf32 = False
     t = time.perf_counter()
-    mc = heavy_metals_fit(dev)
+    mc = heavy_metals_fit(dev, a.family)
     torch.cuda.synchronize()
     g = mc.graph
     deg = torch.diff(g.plan_ptr)
-    print(f"# {torch.cuda.get_device_name(dev)}, n={g.n}, set-up "
+    print(f"# {torch.cuda.get_device_name(dev)}, {a.family}, n={g.n}, set-up "
           f"{time.perf_counter() - t:.1f} s; sites per colour "
           f"{torch.diff(g.color_ptr).tolist()}; degree mean "
           f"{deg.double().mean().item():.2f}, max {deg.max().item()}",
@@ -253,8 +265,10 @@ def main(argv=None):
         lines.append(time_case(case, plain=(C <= 3)))
         del case
         torch.cuda.empty_cache()
-    if a.profile:
-        lines.append(profile_iteration(mc))
+    for spec in ([] if a.profile is None else a.profile or ["3:1"]):
+        chains, steps = (int(v) for v in spec.split(":"))
+        lines.append(profile_iteration(mc, chains=chains, steps=steps))
+        torch.cuda.empty_cache()
     for line in lines:
         print(json.dumps(line), flush=True)
     if a.json:

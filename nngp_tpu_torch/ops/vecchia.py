@@ -6,7 +6,11 @@ the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
 
 - ``vecchia_linv``: for every site i, the (m+1)x(m+1) correlation of its
   neighbour set, an m x m Cholesky unrolled over the static neighbour count
-  (elementwise over [C, n], no batched-LAPACK loop) and row i of L.
+  and row i of L (``linv_rows_from_K``).  Each multiply-subtract rounds
+  once, as XLA fuses them in ``nngp_tpu``'s jitted iteration: on a card
+  the hand-written kernel ``csrc/factor_rows.cu`` (one thread a row,
+  ``fmaf``), on the CPU its plain twin ``linv_rows_reference`` (the
+  subtractions in float64, where float32 products are exact).
 - ``linv_mult`` / ``linv_t_mult``: L x by gather, L' z by a sum onto the
   columns.
 - ``precision_diag_and_q_edges``: the nonzeros of Q = L'L by sums over the
@@ -28,14 +32,32 @@ run, on the card as on the CPU, and the CPU's bits equal ``index_add_``'s.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
+from nngp_tpu_torch.ops import _build
 from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
 
 
 def sum64(x: torch.Tensor, dim=-1) -> torch.Tensor:
     """Sum accumulated in float64, returned in x's dtype."""
     return x.double().sum(dim).to(x.dtype)
+
+
+def _msub(s, a, b):
+    """s - a*b rounded once, as one fused multiply-add: two float32 factors
+    multiply exactly in float64, so only the subtraction rounds (then the
+    cast).  On float64 tensors the casts do nothing: s - a*b op by op."""
+    return (s.double() - a.double() * b.double()).to(s.dtype)
+
+
+def _sqrt(x):
+    """IEEE square root: in float64, then rounded (innocuously) to x's
+    dtype.  torch's vectorised float32 ``sqrt`` on the CPU is not always
+    correctly rounded."""
+    return torch.sqrt(x.double()).to(x.dtype)
 
 
 def _unrolled_cholesky(K: torch.Tensor, k: int) -> list:
@@ -46,13 +68,13 @@ def _unrolled_cholesky(K: torch.Tensor, k: int) -> list:
     for j in range(k):
         s = K[..., j, j]
         for t in range(j):
-            s = s - L[j][t] * L[j][t]
-        L[j][j] = torch.sqrt(torch.clamp_min(s, 1e-12))
+            s = _msub(s, L[j][t], L[j][t])
+        L[j][j] = _sqrt(torch.clamp_min(s, 1e-12))
         inv_ljj = 1.0 / L[j][j]
         for i in range(j + 1, k):
             s = K[..., i, j]
             for t in range(j):
-                s = s - L[i][t] * L[j][t]
+                s = _msub(s, L[i][t], L[j][t])
             L[i][j] = s * inv_ljj
     return L
 
@@ -63,7 +85,7 @@ def _forward_solve(L: list, b: list, k: int) -> list:
     for i in range(k):
         s = b[i]
         for t in range(i):
-            s = s - L[i][t] * y[t]
+            s = _msub(s, L[i][t], y[t])
         y[i] = s / L[i][i]
     return y
 
@@ -74,17 +96,20 @@ def _backward_solve(L: list, y: list, k: int) -> list:
     for i in range(k - 1, -1, -1):
         s = y[i]
         for t in range(i + 1, k):
-            s = s - L[t][i] * z[t]
+            s = _msub(s, L[t][i], z[t])
         z[i] = s / L[i][i]
     return z
 
 
-def linv_rows_from_K(K: torch.Tensor, mask: torch.Tensor,
-                     d_floor: float = 1e-12) -> torch.Tensor:
-    """Compressed factor rows [..., m+1] from neighbour-set correlations
-    K [..., m+1, m+1] and the validity mask [n, m+1]: the conditional of
-    position 0 given positions 1..m, with the conditional variance floored
-    at ``d_floor``."""
+def linv_rows_reference(K: torch.Tensor, mask: torch.Tensor,
+                        d_floor: float = 1e-12) -> torch.Tensor:
+    """Plain PyTorch version of the ``factor_rows`` kernel: ``nngp_tpu``'s
+    unrolled build (``nngp_tpu/ops/vecchia.py:linv_rows_from_K``) with every
+    multiply-subtract rounded once (``_msub``), as XLA fuses them inside
+    ``nngp_tpu``'s jitted iteration, and the square roots and 1/sqrt(d)
+    correctly rounded (``_sqrt``, then a division; CUDA's float32
+    ``torch.rsqrt`` may be approximate), as the kernel's ``sqrtf`` and
+    divisions are."""
     k = K.shape[-1]
     m = k - 1
     # force padded rows/cols to identity
@@ -98,14 +123,86 @@ def linv_rows_from_K(K: torch.Tensor, mask: torch.Tensor,
     u = _forward_solve(L, kni, m)
     d = K[..., 0, 0]
     for j in range(m):
-        d = d - u[j] * u[j]
+        d = _msub(d, u[j], u[j])
     d = torch.clamp_min(d, d_floor)
     b = _backward_solve(L, u, m)
-    inv_sqrt_d = torch.rsqrt(d)
+    inv_sqrt_d = 1.0 / _sqrt(d)
     rows = [inv_sqrt_d] + [
         -b[j] * inv_sqrt_d * mask[..., 1 + j] for j in range(m)
     ]
     return torch.stack(rows, dim=-1)
+
+
+FACTOR_ROWS_MAX_M = 16     # csrc/factor_rows.cu's kMaxM: m = 0..16 instantiated
+
+
+@functools.cache
+def _factor_rows_library():
+    lib = _build.cuda_library("factor_rows")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.factor_rows_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i,
+                                       ctypes.c_float, p]
+    lib.factor_rows_launch.restype = i
+    return lib
+
+
+def linv_rows_cuda(K: torch.Tensor, mask: torch.Tensor,
+                   d_floor: float = 1e-12) -> torch.Tensor:
+    """The ``factor_rows`` kernel (``csrc/factor_rows.cu``) on K [..., R, k,
+    k] and mask [R, k], float32 contiguous on one card; launched on the
+    current stream, counted in ``linv_rows_from_K.launches``."""
+    k = K.shape[-1]
+    if k - 1 > FACTOR_ROWS_MAX_M:
+        raise ValueError(f"factor_rows: m = {k - 1} neighbours, the kernel "
+                         f"takes at most {FACTOR_ROWS_MAX_M}")
+    if K.dim() < 3 or K.shape[-2] != k:
+        raise ValueError(f"factor_rows: K has shape {tuple(K.shape)}, "
+                         "expected [..., R, k, k]")
+    R = K.shape[-3]
+    for name, t, shape in (("K", K, K.shape), ("mask", mask, (R, k))):
+        if t.device != K.device or t.dtype != torch.float32:
+            raise TypeError(f"factor_rows: {name} is {t.dtype} on "
+                            f"{t.device}, expected float32 on {K.device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"factor_rows: {name} has shape "
+                             f"{tuple(t.shape)} (contiguous "
+                             f"{t.is_contiguous()}), expected {tuple(shape)}"
+                             " contiguous")
+    lib = _factor_rows_library()
+    rows = torch.empty(K.shape[:-1], dtype=K.dtype, device=K.device)
+    B = rows.numel() // k
+    if B == 0:
+        return rows
+    stream = torch.cuda.current_stream(K.device).cuda_stream
+    err = lib.factor_rows_launch(K.data_ptr(), mask.data_ptr(),
+                                 rows.data_ptr(), B, R, k - 1, d_floor,
+                                 stream)
+    if err != 0:
+        raise RuntimeError(f"factor_rows kernel launch failed: CUDA error "
+                           f"{err}")
+    linv_rows_from_K.launches += 1
+    return rows
+
+
+def linv_rows_from_K(K: torch.Tensor, mask: torch.Tensor,
+                     d_floor: float = 1e-12) -> torch.Tensor:
+    """Compressed factor rows [..., m+1] from neighbour-set correlations
+    K [..., m+1, m+1] and the validity mask [n, m+1]: the conditional of
+    position 0 given positions 1..m, with the conditional variance floored
+    at ``d_floor``.  float32 on a card launches the ``factor_rows`` kernel;
+    float32 on the CPU, and float64 anywhere, run ``linv_rows_reference``
+    (float64 has nothing to fuse).  ``linv_rows_from_K.launches`` counts
+    kernel launches."""
+    if K.dtype == torch.float32 and K.device.type == "cuda":
+        return linv_rows_cuda(K.contiguous(), mask.contiguous(), d_floor)
+    if K.dtype in (torch.float32, torch.float64) and K.device.type in (
+            "cpu", "cuda"):
+        return linv_rows_reference(K, mask, d_floor)
+    raise TypeError(f"linv_rows_from_K: no implementation for {K.dtype} on "
+                    f"{K.device}")
+
+
+linv_rows_from_K.launches = 0
 
 
 def vecchia_linv(graph, natural_shape: torch.Tensor) -> torch.Tensor:

@@ -232,6 +232,52 @@ def test_gibbs_iterations_card_match_cpu():
                                    err_msg=f)
 
 
+# --- the factor rows kernel ---------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", list(range(17)))
+def test_factor_rows_kernel_matches_twin(m):
+    """csrc/factor_rows.cu at every instantiated m against its plain twin
+    on random SPD blocks with padded slots: max |a - b| / (|b| + 1e-3) at
+    most 1e-4 (both round each multiply-subtract once), one launch counted
+    a call, repeat calls bit for bit, padded slots exactly 0."""
+    from nngp_tpu_torch.ops import vecchia as V
+
+    dev = _card()
+    k, R = m + 1, 1000
+    rng = np.random.default_rng(m)
+    A = rng.normal(size=(3, R, k, k + 2)).astype(np.float32)
+    K = torch.as_tensor(A @ A.transpose(0, 1, 3, 2) / (k + 2)).to(dev)
+    mask = torch.as_tensor(rng.uniform(size=(R, k)) > 0.2).float().to(dev)
+    mask[:, 0] = 1
+    before = V.linv_rows_from_K.launches
+    got = V.linv_rows_from_K(K, mask, 1e-5)
+    again = V.linv_rows_from_K(K, mask, 1e-5)
+    torch.cuda.synchronize()
+    assert V.linv_rows_from_K.launches == before + 2
+    assert torch.equal(got, again)
+    want = V.linv_rows_reference(K, mask, 1e-5)
+    rel = ((got - want).abs() / (want.abs() + 1e-3)).max().item()
+    assert rel <= 1e-4, rel
+    assert torch.all(got[..., mask == 0] == 0)
+
+
+@pytest.mark.gpu
+def test_factor_rows_kernel_refuses_what_it_does_not_take():
+    from nngp_tpu_torch.ops import vecchia as V
+
+    dev = _card()
+    K = torch.eye(6, device=dev).expand(2, 10, 6, 6)
+    mask = torch.ones(10, 6, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        V.linv_rows_cuda(K, mask)
+    with pytest.raises(TypeError, match="float32"):
+        V.linv_rows_cuda(K.contiguous(), mask.double())
+    K18 = torch.eye(18, device=dev).expand(1, 4, 18, 18).contiguous()
+    with pytest.raises(ValueError, match="at most 16"):
+        V.linv_rows_from_K(K18, torch.ones(4, 18, device=dev))
+
+
 # --- Matérn, prediction, save/load on the card -------------------------------
 
 @pytest.mark.gpu

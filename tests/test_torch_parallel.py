@@ -106,6 +106,7 @@ x = torch.from_numpy(s[lo:hi])
 print(json.dumps({"chains": [lo, hi],
                   "grb": collective_grb(x, s.shape[0]).tolist(),
                   "fn": make_collective_grb_fn(mesh, s.shape[0])(x).tolist()}))
+torch.distributed.destroy_process_group()
 """
 
 
