@@ -7,7 +7,9 @@ Phases, each printed with its result and time; any failure ends the run
 with a nonzero exit and no "ok" line:
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc builds the four CUDA sources of csrc/, all at once
+  2. build        nvcc builds the four CUDA sources of csrc/ (factor_rows.cu
+                  as its three parts at the main path's m = 5; other m
+                  are built on first use), one nvcc each, all at once
   3. small parity 3 Gibbs iterations of a 400-site problem on the card
                   against the same iterations on the CPU (whose path the
                   tests hold against nngp_tpu), same injected draws
@@ -63,16 +65,27 @@ with a nonzero exit and no "ok" line:
                   build's proposal log-det difference at the Matérn probe's
                   (range, nu) against the float64 oracle (tolerance 1e-2),
                   then run 25 iterations and estimate the smoothness
- 12. factor rows  the factor-rows kernel (csrc/factor_rows.cu) against its
-                  plain twin at the main path's shapes (the Heavy-metals K
-                  at 3 and 96 chains, matern_sphere's at 3): max |a - b| /
-                  (|b| + 1e-3) at most 1e-4 and the count of differing
-                  elements; median ms of the kernel, the twin and
+ 12. factor rows  both entries of csrc/factor_rows.cu at the main path's
+                  shapes (the Heavy-metals graph's states tiled to 3 and 96
+                  chains, matern_sphere's at 3).  The K-input entry
+                  factor_rows against its plain twin on the same K: max
+                  |a - b| / (|b| + 1e-3) at most 1e-4 and the count of
+                  differing elements; median ms of the kernel, the twin and
                   PyTorch's batched solvers (cholesky_ex, two
                   solve_triangular) beside the byte bound; its log-diagonal
                   error against the float64 factor of the same K at
                   factor_probe's and matern_probe's Heavy-metals states,
-                  at most 1.5 x the jitted JAX script's CPU figure
+                  at most 1.5 x the jitted JAX script's CPU figure.  The
+                  fused factor_build (the main path's) against
+                  vecchia_linv_reference: max relative row difference at
+                  most 1e-4 (exponential) and 1e-3 (Matérn), the count of
+                  differing elements, median ms of the kernel, the twin
+                  and the yardstick (correlation_from_sqdist, then the
+                  batched solvers) beside the bound (bytes; operations
+                  counted from this run's data for Matérn); its
+                  log-diagonal against the float64 factor of float64
+                  correlations at the same two states, at most 1.5 x the
+                  JAX script's full (total) figure
  13. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
                   experiments by python -m, all at once, at cut sizes:
                   grb_guard, hm_mpsrf on the main path's fit, hm_crossval
@@ -149,13 +162,15 @@ Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's launches from zero and needs exactly one per
 iteration; halo mode needs one per colour step that has a site of the
 rank; the bench phase needs one per iteration of its legs plus the
-preflight's one.  Every run also counts the factor-rows kernel from zero
-and needs one launch for the cycle's factor and two an ASIS pair.
+preflight's one.  Every run also counts the fused factor build from zero
+and needs one launch for the cycle's factor and two an ASIS pair, and no
+launch of the K-input factor rows (the main path never writes K).
 
 The line before last is the kernels' JSON; the last line is
 {"ok": true, "device": {...}}.  Needs no network and imports no jax.
 """
 
+import functools
 import json
 import os
 import subprocess
@@ -187,8 +202,11 @@ MATERN_THETA = (0.006120802718214691, 0.75)
 MATERN_THETA_P = (0.006120802718214691 * 1.02, 0.7525)
 LOGDET_TOL = 1e-2   # proposal log-det difference, card against float64
 # factor rows kernel against its twin: |a - b| / (|b| + 1e-3), the CPU
-# test's bound against jitted nngp_tpu (tests/test_torch_factor_rows.py)
+# test's bound against jitted nngp_tpu (tests/test_torch_factor_rows.py);
+# the fused build's Matérn rows: 1e-3 (its Bessel on the CUDA math library
+# against torch's kernels, an ulp of K amplified by 1/d in the rows)
 FACTOR_TOL_REL = 1e-4
+FACTOR_TOL_REL_MATERN = 1e-3
 # its log-diagonal error against the float64 factor of the same K: at most
 # this times the jitted JAX script's figure on the CPU
 FACTOR_LOGDIAG = 1.5
@@ -531,35 +549,37 @@ def probe_yardsticks(dev):
 
 
 def run_counted(mc, n_iterations, per_iteration=1, **kw):
-    """``run`` with the sweep and factor-rows kernels' launches counted from
-    zero; fails unless every iteration launched the sweep kernel
-    ``per_iteration`` times, the factor rows kernel ran once for the cycle's
-    factor and twice an ASIS pair (``run_counted.factor_launches``), and
-    every state is finite."""
+    """``run`` with the sweep and factor-build kernels' launches counted
+    from zero; fails unless every iteration launched the sweep kernel
+    ``per_iteration`` times, the fused factor build ran once for the cycle's
+    factor and twice an ASIS pair (``run_counted.factor_launches``), the
+    K-input factor rows never, and every state is finite."""
     import torch
 
     import nngp_tpu_torch
     from nngp_tpu_torch.ops import sweep
-    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K
+    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K, vecchia_linv
 
     start = mc.iterations
     t = time.perf_counter()
     sweep.chromatic_sweeps.launches = 0
-    linv_rows_from_K.launches = 0
+    vecchia_linv.launches = linv_rows_from_K.launches = 0
     mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=n_iterations,
                             **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t
     launches = sweep.chromatic_sweeps.launches
-    run_counted.factor_launches = linv_rows_from_K.launches
+    run_counted.factor_launches = vecchia_linv.launches
     if launches != n_iterations * per_iteration:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
     want = 1 + 2 * kw.get("covparams_steps", 1) * n_iterations
-    if run_counted.factor_launches != want:
-        raise RuntimeError(f"run launched the factor rows kernel "
+    if run_counted.factor_launches != want or linv_rows_from_K.launches:
+        raise RuntimeError(f"run launched the factor build "
                            f"{run_counted.factor_launches} times in "
-                           f"{n_iterations} iterations, expected {want}")
+                           f"{n_iterations} iterations, expected {want}, and "
+                           f"the K-input factor rows "
+                           f"{linv_rows_from_K.launches} times, expected 0")
     if mc.iterations != start + n_iterations:
         raise RuntimeError(f"iterations {start} -> {mc.iterations}, not "
                            f"+{n_iterations}")
@@ -768,6 +788,218 @@ def factor_rows(mc, mm):
               flush=True)
         if not err <= bound:
             raise RuntimeError(f"factor rows, {label}: log-diagonal error "
+                               f"{err:.3e} > {bound:.3e}")
+    return out, logdiag
+
+
+# float32 operations of csrc/factor_rows.cu:factor_build, counted from its
+# code: + - x / max each 1, an fma 2, and each expf, logf, sinhf, coshf,
+# sqrtf SFU = 8 (the SFU's 16 a clock an SM against 128 float32 lanes).
+SFU = 8
+OPS_DIST = 3 + SFU              # d2g / rr (G = 1), max, sqrtf; then K v
+OPS_EXP = 1 + SFU               # expf(-d)
+OPS_SERIES = 58 + 2 * SFU       # d <= 0.29: the complementary series
+OPS_TEMME = 360 + 4 * SFU       # 0.29 < d <= 2: Temme's set-up, 20 terms
+OPS_CF2_FIXED, OPS_CF2_STEP = 19 + 2 * SFU, 30   # d > 2: CF2, a step
+OPS_BIG = 4 + 2 * SFU           # exp(lognorm + nu log x) K_nu
+OPS_RECUR = 5                   # one upward recurrence step
+
+
+def _row_ops(m):
+    """Operations of the unrolled row body at m neighbours."""
+    chol = sum(2 * j + 2 + SFU + 2 * j * (m - j - 1) + (m - j - 1)
+               for j in range(m))
+    solves = sum(2 * i + 1 for i in range(m)) * 2
+    return chol + solves + 2 * m + 1 + SFU + 1 + 2 * m
+
+
+def _cf2_steps(x, mu):
+    """Steps ops/bessel.py:_cf2_large_x runs at each x > 2 before its lane
+    freezes (at most 40), replayed in float32 by the twin's recurrence."""
+    import torch
+
+    b = 2.0 * (1.0 + x)
+    d = 1.0 / b
+    delh = d
+    q1, q2 = torch.zeros_like(x), torch.ones_like(x)
+    a1 = 0.25 - mu * mu
+    q, c, a = a1.clone(), a1.clone(), -a1
+    s = 1.0 + q * delh
+    steps = torch.full_like(x, 40)
+    live = torch.ones_like(x, dtype=torch.bool)
+    for i in range(2, 42):
+        a = a - 2.0 * (i - 1)
+        c = -a * c / i
+        qnew = (q1 - b * q2) / a
+        q1, q2 = q2, qnew
+        q = q + c * qnew
+        r = torch.clamp_min(c.abs(), 1e-30)
+        c, q1, q2 = c / r, q1 * r, q2 * r
+        b = b + 2.0
+        denom = b + a * d
+        d = 1.0 / torch.where(denom.abs() < 1e-30,
+                              torch.full_like(denom, 1e-30), denom)
+        delh = (b * d - 1.0) * delh
+        dels = q * delh
+        s = s + dels
+        stop = live & (dels.abs() < 1e-8 * s.abs())
+        steps[stop] = i - 1
+        live &= ~stop
+    return steps
+
+
+def factor_build_ops(g, nat):
+    """The float32 operations factor_build does on these inputs: each
+    chain's valid strictly-lower pairs of every row (the entries the row
+    body reads), by the branch their distance takes and, beyond 2, by the
+    CF2 steps this data needs; then the row body."""
+    import torch
+
+    from nngp_tpu_torch.ops.bessel import _split_order
+
+    k = g.nn_mask.shape[1]
+    G = g.nn_dist2.shape[-1]
+    i, j = torch.tril_indices(k, k, -1, device=nat.device)
+    valid = (g.nn_mask[:, i] * g.nn_mask[:, j]) > 0               # [n, P]
+    rr = nat[:, :G] * nat[:, :G]
+    d2 = (g.nn_dist2[None, :, i, j] / rr[:, None, None]).sum(-1)   # [C, n, P]
+    d = torch.sqrt(torch.clamp_min(d2, 0.0))
+    live = valid[None].expand_as(d)
+    ops = float(live.sum()) * OPS_DIST
+    if g.covfun.startswith("exponential"):
+        ops += float(live.sum()) * OPS_EXP
+    else:
+        live = live & (d > 1e-8)
+        x = torch.clamp_min(d, 1e-8)
+        l, mu = _split_order(nat[:, G][:, None, None].expand_as(x))
+        series, big = live & (x <= 0.29), live & (x > 0.29)
+        cf2 = big & (x > 2.0)
+        ops += (float(series.sum()) * OPS_SERIES
+                + float((big & ~cf2).sum()) * OPS_TEMME
+                + float(cf2.sum()) * OPS_CF2_FIXED
+                + float(_cf2_steps(x[cf2], mu[cf2]).sum()) * OPS_CF2_STEP
+                + float(big.sum()) * OPS_BIG
+                + float(l[big].sum()) * OPS_RECUR)
+    return ops + nat.shape[0] * g.nn_mask.shape[0] * _row_ops(k - 1)
+
+
+def _library_factor_build(g, nat):
+    """The yardstick of the fused build (used nowhere in the port): the
+    correlations by ``correlation_from_sqdist``, then PyTorch's batched
+    solvers (``_library_factor_rows``)."""
+    from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
+
+    def call():
+        K = correlation_from_sqdist(g.covfun, g.nn_dist2, nat)
+        return _library_factor_rows(K, g.nn_mask, g.d_floor)()
+    return call
+
+
+def factor_build(mc, mm):
+    """The fused factor build (csrc/factor_rows.cu:factor_build, the main
+    path's) against its plain twin vecchia_linv_reference on the card at
+    the main path's shapes (the Heavy-metals states tiled to 3 and 96
+    chains, matern_sphere's at 3): the max relative row difference |a - b|
+    / (|b| + 1e-3) (at most FACTOR_TOL_REL, FACTOR_TOL_REL_MATERN for
+    Matérn), the count of differing elements, the median ms of the kernel,
+    the twin and the yardstick (21 calls each), and the bound.  Then its
+    log-diagonal against the float64 factor of float64 correlations at
+    factor_probe's and matern_probe's Heavy-metals states, at most
+    FACTOR_LOGDIAG x the JAX scripts' full figure on the CPU.  Returns
+    (cases, log-diagonal rows)."""
+    import numpy as np
+    import torch
+
+    from nngp_tpu_torch.experiments import factor_probe, timing
+    from nngp_tpu_torch.experiments._oracles import (f64_linv_from_K,
+                                                     f64_linv_logdiag,
+                                                     f64_matern_from_d2g)
+    from nngp_tpu_torch.experiments.sweep_bench import tile_states
+    from nngp_tpu_torch.ops import vecchia as V
+    from nngp_tpu_torch.ops.covariance import shape_transform
+
+    def names(fit):
+        return fit.space_time_model["covfun"]["shape_params"]
+
+    cases = {f"exponential_sphere {C} chains": (
+        mc.graph, shape_transform(names(mc), tile_states(mc.states, C).shape))
+        for C in (3, 96)}
+    cases["matern_sphere 3 chains"] = (
+        mm.graph, shape_transform(names(mm), mm.states.shape))
+    out = {}
+    for label, (g, nat) in cases.items():
+        nat = nat.contiguous()
+        tol = (FACTOR_TOL_REL_MATERN if g.covfun.startswith("matern")
+               else FACTOR_TOL_REL)
+        kernel = V.factor_build_cuda(g, nat)
+        twin = V.vecchia_linv_reference(g.covfun, g.nn_dist2, g.nn_mask, nat,
+                                        g.d_floor)
+        torch.cuda.synchronize()
+        if not bool(torch.isfinite(kernel).all()):
+            raise RuntimeError(f"factor build, {label}: non-finite rows")
+        rel = float(((kernel - twin).abs() / (twin.abs() + 1e-3)).max())
+        differ = int((kernel != twin).sum())
+        nbytes = _nbytes(g.nn_dist2, g.nn_mask, nat, kernel)
+        flops = factor_build_ops(g, nat)
+        bound, by = _bound(nbytes, flops)
+        out[label] = {
+            "shape": list(kernel.shape), "max_rel": rel, "differ": differ,
+            "numel": kernel.numel(), "tol": tol,
+            "max_abs_err": float((kernel - twin).abs().max()),
+            "ms": timing.median_ms(lambda: V.factor_build_cuda(g, nat), 21),
+            "plain_ms": timing.median_ms(
+                lambda: V.vecchia_linv_reference(
+                    g.covfun, g.nn_dist2, g.nn_mask, nat, g.d_floor), 21),
+            "library_ms": timing.median_ms(_library_factor_build(g, nat), 21),
+            "bound_ms": bound, "bound_by": by, "bytes": nbytes,
+            "operations": flops}
+        print(f"  fused {label}: rows {list(kernel.shape)}, kernel vs twin "
+              f"max rel {rel:.3e} <= {tol:g}, {differ} of {kernel.numel()} "
+              f"elements differ; median ms kernel {out[label]['ms']:.4f}, "
+              f"twin {out[label]['plain_ms']:.3f}, library "
+              f"{out[label]['library_ms']:.3f}, bound {bound:.4f} by {by} "
+              f"({nbytes / 1e6:.1f} MB, {flops / 1e9:.3f} GFLOP)", flush=True)
+        if not rel <= tol:
+            raise RuntimeError(f"factor build, {label}: kernel vs twin max "
+                               f"rel {rel:.3e} > {tol}")
+        del kernel, twin
+        torch.cuda.empty_cache()
+
+    records = ("nngp_tpu_torch", "experiments", "records")
+    jf = _read_json(*records, "factor_probe_jax_cpu_synthetic.json")
+    jm = _read_json(*records, "matern_probe_jax_cpu_synthetic.json")
+    d2g = mm.graph.nn_dist2.cpu().numpy()
+    sq = d2g.sum(-1)[mm.graph.nn_mask.cpu().numpy() > 0]
+    rho = 2.5 * float(np.sqrt(np.median(sq[sq > 0])))
+
+    def exp64(g, nat):
+        d2 = g.nn_dist2[..., 0].double().cpu().numpy()
+        K = np.exp(-np.sqrt(np.maximum(d2, 0.0)) / np.float64(np.float32(
+            nat[0])))
+        return np.log(f64_linv_from_K(K, g.nn_mask.cpu().numpy())[0][:, 0])
+
+    def matern64(g, nat):
+        K = f64_matern_from_d2g(g.nn_dist2.cpu().numpy(), nat[:1], nat[1])
+        return f64_linv_logdiag(K, g.nn_mask.cpu().numpy())[0]
+
+    checks = (
+        ("factor_probe theta", mc.graph, [factor_probe.RHO], exp64,
+         jf["logdiag_total_theta"]["max"]),
+        ("matern_probe hm_matern_sphere", mm.graph, [rho, 0.75], matern64,
+         jm["hm_matern_sphere"]["logdiag_err_total"]["max"]))
+    logdiag = []
+    for label, g, nat, oracle, jax_max in checks:
+        t = torch.tensor([nat], dtype=torch.float32, device=g.nn_mask.device)
+        rows = V.factor_build_cuda(g, t)
+        err = float(np.abs(np.log(rows[0, :, 0].double().cpu().numpy())
+                           - oracle(g, nat)).max())
+        bound = FACTOR_LOGDIAG * jax_max
+        logdiag.append((label, err, jax_max, bound))
+        print(f"  fused log-diagonal vs float64 of float64 correlations, "
+              f"{label}: kernel {err:.3e}, JAX CPU full {jax_max:.3e}, bound "
+              f"{bound:.3e}", flush=True)
+        if not err <= bound:
+            raise RuntimeError(f"factor build, {label}: log-diagonal error "
                                f"{err:.3e} > {bound:.3e}")
     return out, logdiag
 
@@ -1413,7 +1645,9 @@ def main():
 
     t = time.perf_counter()
     libs = {"chromatic_sweep": sweep._library,
-            "factor_rows": vecchia._factor_rows_library,
+            **{f"factor_rows{part}_m5": functools.partial(
+                vecchia._factor_library, part, 5)
+               for part in vecchia.FACTOR_PARTS},
             "gather_sweep": gather_ops._sweep_library,
             "gather_probes": gather_ops._probe_library}
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
@@ -1468,8 +1702,8 @@ def main():
     factor_launches = run_counted.factor_launches
     phase("main path", f"run 25 iterations x 3 chains: {run_s:.3f} s = "
           f"{1e3 * run_s / 25:.2f} ms/iteration (cold), sweep kernel "
-          f"launches {launches}, factor rows kernel launches "
-          f"{factor_launches}", t)
+          f"launches {launches}, factor build launches {factor_launches} "
+          "(K-input factor rows 0)", t)
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(tab["names"], tab["table"])}) + f" columns {tab['columns']}")
@@ -1564,15 +1798,23 @@ def main():
 
     t = time.perf_counter()
     fr, fr_logdiag = factor_rows(mc, mm)
+    fb, fb_logdiag = factor_build(mc, mm)
     del mm
     torch.cuda.empty_cache()
-    phase("factor rows", "kernel within "
+    phase("factor rows", "K-input kernel within "
           f"{FACTOR_TOL_REL:g} relative of its twin at " + ", ".join(
               f"{k} ({v['ms']:.4f} ms, twin {v['plain_ms']:.3f}, library "
               f"{v['library_ms']:.3f}, bound {v['bound_ms']:.4f})"
               for k, v in fr.items())
           + "; log-diagonal within " + ", ".join(
-              f"{e:.3e} <= {b:.3e}" for _, e, _, b in fr_logdiag), t)
+              f"{e:.3e} <= {b:.3e}" for _, e, _, b in fr_logdiag)
+          + "; fused build within its tolerance of its twin at " + ", ".join(
+              f"{k} ({v['ms']:.4f} ms, twin {v['plain_ms']:.3f}, library "
+              f"{v['library_ms']:.3f}, bound {v['bound_ms']:.4f} by "
+              f"{v['bound_by']}, {v['differ']} elements differ)"
+              for k, v in fb.items())
+          + "; log-diagonal vs float64 correlations within " + ", ".join(
+              f"{e:.3e} <= {b:.3e}" for _, e, _, b in fb_logdiag), t)
 
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
@@ -1691,11 +1933,14 @@ def main():
     print("  " + json.dumps(result))
 
     t = time.perf_counter()
+    vecchia.linv_rows_from_K.launches = 0
     rows, secs = audits(dev, locs, y, X)
+    fr_launches = vecchia.linv_rows_from_K.launches
     phase("audits", f"{len(rows)} figures within max({AUDIT_FACTOR:g} x the "
           f"JAX CPU figure, {AUDIT_FLOOR:g}), the factor's log-diagonal "
-          f"errors within {FACTOR_LOGDIAG:g} x; seconds: " + ", ".join(
-              f"{k} {v:.1f}" for k, v in secs.items()), t)
+          f"errors within {FACTOR_LOGDIAG:g} x; K-input factor rows "
+          f"launches {fr_launches} (the same-K figures); seconds: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in secs.items()), t)
 
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
@@ -1727,6 +1972,8 @@ def main():
         "ms": kv[3]["ms"], "plain_ms": kv[3]["plain_ms"],
         "bound_ms": kv[3]["bound_ms"], "bound_by": kv[3]["bound_by"],
         "floor_ms": kv[3]["barriers_ms"], "library_ms": None,
+        "96_chains": {k: kv[96][k] for k in (
+            "ms", "bound_ms", "bound_by", "barriers_ms")},
         "halo": f"halo mode launches it once a colour step a rank: "
                 f"{halo_launches} launches in 25 iterations of a 1 x 1 mesh",
         "examples": f"launches: {launches} on the main path, "
@@ -1736,12 +1983,31 @@ def main():
             k: bk[3][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
             "floor_ms": bk[3]["barriers_ms"]}}
         ] + [{
+        "name": "factor_build", "route": "cuda",
+        "source": "nngp_tpu_torch/csrc/factor_rows.cu",
+        "replaces": "nngp_tpu/ops/vecchia.py:116 (vecchia_linv: the "
+                    "correlation, covariance.py:145, and the rows :83, "
+                    "fused by XLA under nngp_tpu/models/gaussian.py:805's "
+                    "jit; not a Pallas kernel)",
+        "launches": factor_launches,
+        **{k: fb["exponential_sphere 3 chains"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "96_chains": {k: fb["exponential_sphere 96 chains"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "matern_sphere": {k: fb["matern_sphere 3 chains"][k] for k in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")}}
+        ] + [{
         "name": "factor_rows", "route": "cuda",
         "source": "nngp_tpu_torch/csrc/factor_rows.cu",
         "replaces": "nngp_tpu/ops/vecchia.py:83 (linv_rows_from_K, fused "
                     "by XLA under nngp_tpu/models/gaussian.py:805's jit; "
                     "not a Pallas kernel)",
-        "launches": factor_launches,
+        "launches": fr_launches,
+        "launches_in": "the audits phase's same-K figures: off the main "
+                       "path, which runs factor_build",
         **{k: fr["exponential_sphere 3 chains"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},

@@ -72,12 +72,12 @@ def arm_fit(arm: str, seed: int, device):
 def run_arm(arm, seed, cycles, iters, device):
     import nngp_tpu_torch
     from nngp_tpu_torch.ops import sweep
-    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K
+    from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
     mc = arm_fit(arm, seed, device)
     knobs = dict(n_iterations_update=iters, field_thinning=0.05,
                  verbose=False, Gelman_Rubin_Brooks_stop=(0.0, 0.0))
-    sweep.chromatic_sweeps.launches = linv_rows_from_K.launches = 0
+    sweep.chromatic_sweeps.launches = vecchia_linv.launches = 0
     t0 = time.time()
     if arm == "am_k3":
         mc = nngp_tpu_torch.run(mc, n_cycles=cycles // 2, **knobs)
@@ -109,7 +109,7 @@ def run_arm(arm, seed, cycles, iters, device):
         "sites": int(mc.graph.n),
         "ms_per_iteration": 1e3 * wall / max(T, 1),
         "kernel_launches": {"chromatic_sweeps": sweep.chromatic_sweeps.launches,
-                            "factor_rows": linv_rows_from_K.launches},
+                            "factor_build": vecchia_linv.launches},
     }
 
 

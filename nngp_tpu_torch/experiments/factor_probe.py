@@ -9,9 +9,12 @@ theta' = theta e^0.05, ``exponential_sphere``, m = 5:
 
   1. K-entry error: ``correlation_from_sqdist`` on the device against the
      float64 exp of the same float32 squared distances;
-  2. the Cholesky error: the device ``vecchia_linv`` log-diagonal against
-     the float64 Cholesky of the device K; the K-entry error carried
-     through the Cholesky; their total;
+  2. the Cholesky error: the device factor rows of the device K
+     (``linv_rows_from_K``, the K-input kernel on a card) against the
+     float64 Cholesky of the device K; the K-entry error carried through
+     the Cholesky; the total: the device ``vecchia_linv`` (one fused
+     ``factor_build`` launch on a card, K never written) against the
+     float64 factor of the float64 K;
   3. the quantiles of the float64 conditional variances d_i;
   4. ``logdet_ratio_err``: sum_i [logd(theta') - logd(theta)], device
      against float64 (what the sufficient MH ratio consumes).
@@ -36,7 +39,7 @@ def probe(graph, device, out: dict) -> dict:
     ``nn_mask`` are read there) with the device arithmetic on ``device``;
     fills and returns ``out``."""
     from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
-    from nngp_tpu_torch.ops.vecchia import vecchia_linv
+    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K, vecchia_linv
 
     d2_f32 = np.asarray(graph.nn_dist2)            # [n, k, k, 1] f32
     mask = np.asarray(graph.nn_mask)
@@ -44,20 +47,22 @@ def probe(graph, device, out: dict) -> dict:
     out.update(n=int(graph.n), rho=RHO)
     for tag, r in (("theta", RHO), ("theta_prime", RHO * np.exp(STEP))):
         nat32 = torch.tensor([[r]], dtype=torch.float32, device=device)
-        K_dev = _common.host(correlation_from_sqdist(COVFUN, g.nn_dist2,
-                                                     nat32)[0])
+        K_t = correlation_from_sqdist(COVFUN, g.nn_dist2, nat32)
+        K_dev = _common.host(K_t[0])
         K_64 = np.exp(-np.sqrt(np.maximum(d2_f32[..., 0].astype(np.float64),
                                           0.0)) / np.float64(np.float32(r)))
         ek = np.abs(K_dev - K_64)[mask[:, :, None] * mask[:, None, :] > 0]
         out[f"K_entry_abs_err_{tag}"] = _common.stats(ek)
 
         linv_dev = _common.host(vecchia_linv(g, nat32)[0])
+        rows_devK = _common.host(linv_rows_from_K(K_t, g.nn_mask,
+                                                  g.d_floor)[0])
         linv_from_devK, _ = f64_linv_from_K(K_dev, mask)
         linv_64, d_64 = f64_linv_from_K(K_64, mask)
         logd_dev = np.log(linv_dev[:, 0])
         logd_from_devK = np.log(linv_from_devK[:, 0])
         logd_64 = np.log(linv_64[:, 0])
-        for nm, e in (("chol", logd_dev - logd_from_devK),
+        for nm, e in (("chol", np.log(rows_devK[:, 0]) - logd_from_devK),
                       ("kentry", logd_from_devK - logd_64),
                       ("total", logd_dev - logd_64)):
             out[f"logdiag_{nm}_{tag}"] = {**_common.stats(e),

@@ -200,18 +200,18 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     from nngp_tpu_torch.ops import sweep
-    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K
+    from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
     args = parse_args(argv)
     device, dev_fields = _common.setup(args)
     locs, y, X, var_y = subsample(args.n)
 
     t0 = time.time()
-    sweep.chromatic_sweeps.launches = linv_rows_from_K.launches = 0
+    sweep.chromatic_sweeps.launches = vecchia_linv.launches = 0
     mc, eng = engine(locs, y, X, args.engine_cycles, args.engine_iters,
                      device)
     launches = {"chromatic_sweeps": sweep.chromatic_sweeps.launches,
-                "factor_rows": linv_rows_from_K.launches}
+                "factor_build": vecchia_linv.launches}
     engine_s = time.time() - t0
     grb = mc.diagnostics["Gelman_Rubin_Brooks"][-1]
     print(f"engine: {mc.iterations} iters/chain in {engine_s:.0f}s, "

@@ -12,8 +12,11 @@ nu = 0.75, and at a proposal 1.02 x range, nu 0.7525:
   1. K-entry error: ``correlation_from_sqdist`` (``ops/covariance.py:
      _matern``, ``ops/bessel.py:kv``) on the device against
      ``scipy.special.kv`` on the same float32 squared distances;
-  2. the log-diagonal error of ``vecchia_linv`` against the float64
-     Cholesky of the device K and of the float64 K;
+  2. the log-diagonal error of the device factor rows of the device K
+     (``linv_rows_from_K``, the K-input kernel on a card) against the
+     float64 Cholesky of that K, and of ``vecchia_linv`` (one fused
+     ``factor_build`` launch on a card, K never written) against the
+     float64 factor of the float64 K;
   3. the proposal's log-det difference sum_i dlog d_i, device against
      float64, and where its error lives (rows by conditional variance).
 
@@ -37,7 +40,7 @@ def probe_family(covfun, graph, NN, label, out, device="cuda") -> dict:
     ``NN``), the device arithmetic on ``device``; stores the entry as
     ``out[label]`` and returns it."""
     from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
-    from nngp_tpu_torch.ops.vecchia import vecchia_linv
+    from nngp_tpu_torch.ops.vecchia import linv_rows_from_K, vecchia_linv
 
     n = graph.n
     d2g = np.asarray(graph.nn_dist2)       # f32 host copy, f64-built
@@ -55,20 +58,21 @@ def probe_family(covfun, graph, NN, label, out, device="cuda") -> dict:
     dev = {}
     for nm, nat in (("theta", natural), ("theta_p", natural_p)):
         nat32 = torch.tensor(nat[None], dtype=torch.float32, device=device)
-        dev[nm] = (_common.host(correlation_from_sqdist(covfun, g.nn_dist2,
-                                                        nat32)[0]),
-                   _common.host(vecchia_linv(g, nat32)[0]))
+        K_t = correlation_from_sqdist(covfun, g.nn_dist2, nat32)
+        dev[nm] = (K_t, _common.host(vecchia_linv(g, nat32)[0]))
 
-    K_dev, linv_dev = dev["theta"]
+    K_t, linv_dev = dev["theta"]
+    K_dev = _common.host(K_t[0])
+    rows_devK = _common.host(linv_rows_from_K(K_t, g.nn_mask, g.d_floor)[0])
     K_f64 = f64_matern_from_d2g(d2g, natural[:G], natural[G])
     valid = (mask[:, :, None] * mask[:, None, :]) > 0
     kerr = np.abs(K_dev - K_f64)[valid]
     ld_dev = np.log(linv_dev[:, 0])
     ld_oracle_devK, _ = f64_linv_logdiag(K_dev, mask)
     ld_oracle_f64K, d_f64K = f64_linv_logdiag(K_f64, mask)
-    e_chol = ld_dev - ld_oracle_devK
+    e_chol = np.log(rows_devK[:, 0]) - ld_oracle_devK
     e_total = ld_dev - ld_oracle_f64K
-    _, linv_dev_p = dev["theta_p"]
+    linv_dev_p = dev["theta_p"][1]
     K_f64_p = f64_matern_from_d2g(d2g, natural_p[:G], natural_p[G])
     dld_dev = np.log(linv_dev_p[:, 0]) - np.log(linv_dev[:, 0])
     ld_p64, _ = f64_linv_logdiag(K_f64_p, mask)

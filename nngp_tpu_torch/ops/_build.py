@@ -79,17 +79,21 @@ def build_log(name: str) -> str:
 
 
 @functools.cache
-def cuda_library(name: str) -> ctypes.CDLL:
-    """Build (first use) and load ``csrc/<name>.cu``.  Raises RuntimeError
-    when there is no nvcc or the build fails; there is no fallback."""
+def cuda_library(name: str, part: str = "",
+                 defines: tuple = ()) -> ctypes.CDLL:
+    """Build (first use) and load ``csrc/<name>.cu``, compiled with the
+    preprocessor ``defines`` as the library ``<name><part>`` (one source
+    built in parts, one nvcc each).  Raises RuntimeError when there is no
+    nvcc or the build fails; there is no fallback."""
     nvcc = nvcc_path()
     if nvcc is None:
         raise RuntimeError(
             f"the CUDA kernel {name} needs nvcc to build "
             f"csrc/{name}.cu (none found on PATH, in $CUDA_HOME or in "
             "/usr/local/cuda)")
-    return ctypes.CDLL(_compile(nvcc, NVCC_FLAGS,
-                                os.path.join(CSRC_DIR, f"{name}.cu"), name))
+    return ctypes.CDLL(_compile(nvcc, NVCC_FLAGS + tuple(defines),
+                                os.path.join(CSRC_DIR, f"{name}.cu"),
+                                name + part))
 
 
 def host_library(src: str, name: str, flags) -> str:

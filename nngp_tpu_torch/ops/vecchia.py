@@ -6,11 +6,15 @@ the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
 
 - ``vecchia_linv``: for every site i, the (m+1)x(m+1) correlation of its
   neighbour set, an m x m Cholesky unrolled over the static neighbour count
-  and row i of L (``linv_rows_from_K``).  Each multiply-subtract rounds
-  once, as XLA fuses them in ``nngp_tpu``'s jitted iteration: on a card
-  the hand-written kernel ``csrc/factor_rows.cu`` (one thread a row,
-  ``fmaf``), on the CPU its plain twin ``linv_rows_reference`` (the
+  and row i of L.  Each multiply-subtract rounds once, as XLA fuses them in
+  ``nngp_tpu``'s jitted iteration.  On a card it is one launch of the
+  hand-written kernel ``csrc/factor_rows.cu:factor_build`` (one thread a
+  (chain, row), each correlation computed where the Cholesky uses it, so K
+  is never written); on the CPU its plain twin ``vecchia_linv_reference``
+  (``correlation_from_sqdist``, then ``linv_rows_reference``: the
   subtractions in float64, where float32 products are exact).
+- ``linv_rows_from_K``: the factor rows from a given K (the audits' same-K
+  comparisons): on a card the kernel's K-input entry ``factor_rows``.
 - ``linv_mult`` / ``linv_t_mult``: L x by gather, L' z by a sum onto the
   columns.
 - ``precision_diag_and_q_edges``: the nonzeros of Q = L'L by sums over the
@@ -38,7 +42,8 @@ import functools
 import torch
 
 from nngp_tpu_torch.ops import _build
-from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
+from nngp_tpu_torch.ops.covariance import (correlation_from_sqdist,
+                                           require_supported)
 
 
 def sum64(x: torch.Tensor, dim=-1) -> torch.Tensor:
@@ -136,13 +141,30 @@ def linv_rows_reference(K: torch.Tensor, mask: torch.Tensor,
 FACTOR_ROWS_MAX_M = 16     # csrc/factor_rows.cu's kMaxM: m = 0..16 instantiated
 
 
+# csrc/factor_rows.cu is built by part and by m, one small library each on
+# first use (its FACTOR_PART bits and FACTOR_M): the K-input entry, and the
+# fused build's exponential and Matérn instantiations.  Whole, its 51
+# unrolled kernels take nvcc minutes; one takes seconds.
+FACTOR_PARTS = {"": 1, "_exponential": 2, "_matern": 4}
+
+
 @functools.cache
-def _factor_rows_library():
-    lib = _build.cuda_library("factor_rows")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.factor_rows_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i,
-                                       ctypes.c_float, p]
-    lib.factor_rows_launch.restype = i
+def _factor_library(part: str, m: int):
+    """The part ``part`` of ``csrc/factor_rows.cu`` at m neighbours, built
+    and loaded: ``factor_rows_launch`` ("") or ``factor_build_launch`` for
+    one family ("_exponential", "_matern")."""
+    lib = _build.cuda_library("factor_rows", f"{part}_m{m}",
+                              (f"-DFACTOR_PART={FACTOR_PARTS[part]}",
+                               f"-DFACTOR_M={m}"))
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if part:
+        lib.factor_build_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
+                                            f, p]
+        lib.factor_build_launch.restype = i
+    else:
+        lib.factor_rows_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i,
+                                           f, p]
+        lib.factor_rows_launch.restype = i
     return lib
 
 
@@ -168,7 +190,7 @@ def linv_rows_cuda(K: torch.Tensor, mask: torch.Tensor,
                              f"{tuple(t.shape)} (contiguous "
                              f"{t.is_contiguous()}), expected {tuple(shape)}"
                              " contiguous")
-    lib = _factor_rows_library()
+    lib = _factor_library("", k - 1)
     rows = torch.empty(K.shape[:-1], dtype=K.dtype, device=K.device)
     B = rows.numel() // k
     if B == 0:
@@ -205,18 +227,102 @@ def linv_rows_from_K(K: torch.Tensor, mask: torch.Tensor,
 linv_rows_from_K.launches = 0
 
 
-def vecchia_linv(graph, natural_shape: torch.Tensor) -> torch.Tensor:
+def vecchia_linv_reference(covfun: str, nn_dist2: torch.Tensor,
+                           nn_mask: torch.Tensor, natural: torch.Tensor,
+                           d_floor: float = 1e-12) -> torch.Tensor:
+    """Plain PyTorch version of the ``factor_build`` kernel: the
+    correlations K [C, R, k, k] (``correlation_from_sqdist``) of the rows'
+    squared distances nn_dist2 [R, k, k, G], then ``linv_rows_reference``
+    with the rows' mask nn_mask [R, k]."""
+    K = correlation_from_sqdist(covfun, nn_dist2, natural)
+    return linv_rows_reference(K, nn_mask, d_floor)
+
+
+def factor_build_cuda(graph, natural: torch.Tensor,
+                      rows: torch.Tensor | None = None) -> torch.Tensor:
+    """The ``factor_build`` kernel (``csrc/factor_rows.cu``): the factor
+    [C, R, m+1] at the graph's rows (all n, or the R rows of ``rows``, an
+    int32/int64 index in [0, n) that is not checked) from its
+    ``nn_dist2`` [n, k, k, G] and ``nn_mask`` [n, k] and natural shape
+    params [C, n_shape], float32 contiguous on one card; launched on the
+    current stream, counted in ``vecchia_linv.launches``."""
+    covfun, d2g, mask = graph.covfun, graph.nn_dist2, graph.nn_mask
+    require_supported(covfun)
+    if d2g.dim() != 4 or d2g.shape[1] != d2g.shape[2]:
+        raise ValueError(f"factor_build: nn_dist2 has shape "
+                         f"{tuple(d2g.shape)}, expected [n, k, k, G]")
+    n, k, _, G = d2g.shape
+    if k - 1 > FACTOR_ROWS_MAX_M:
+        raise ValueError(f"factor_build: m = {k - 1} neighbours, the kernel "
+                         f"takes at most {FACTOR_ROWS_MAX_M}")
+    matern = covfun.startswith("matern")
+    if natural.dim() != 2 or natural.shape[1] < G + matern:
+        raise ValueError(f"factor_build: natural has shape "
+                         f"{tuple(natural.shape)}, expected [C, >= "
+                         f"{G + matern}] for {covfun}")
+    for name, t, shape in (("nn_dist2", d2g, d2g.shape),
+                           ("nn_mask", mask, (n, k)),
+                           ("natural", natural, natural.shape)):
+        if t.dtype != torch.float32 or t.device != natural.device:
+            raise TypeError(f"factor_build: {name} is {t.dtype} on "
+                            f"{t.device}, expected float32 on "
+                            f"{natural.device}")
+        if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+            raise ValueError(f"factor_build: {name} has shape "
+                             f"{tuple(t.shape)} (contiguous "
+                             f"{t.is_contiguous()}), expected {tuple(shape)}"
+                             " contiguous")
+    if rows is not None:
+        if rows.dim() != 1 or rows.dtype not in (torch.int32, torch.int64) \
+                or rows.device != natural.device:
+            raise TypeError(f"factor_build: rows is {rows.dtype} "
+                            f"{tuple(rows.shape)} on {rows.device}, expected "
+                            f"a 1-D int32/int64 index on {natural.device}")
+        rows = rows.to(torch.int64).contiguous()
+    if natural.device.type != "cuda":
+        raise TypeError(f"factor_build: the tensors are on "
+                        f"{natural.device}, the kernel takes a CUDA device's")
+    C, R = natural.shape[0], n if rows is None else rows.shape[0]
+    lib = _factor_library("_matern" if matern else "_exponential", k - 1)
+    out = torch.empty((C, R, k), dtype=torch.float32, device=natural.device)
+    if C == 0 or R == 0:
+        return out
+    stream = torch.cuda.current_stream(natural.device).cuda_stream
+    err = lib.factor_build_launch(
+        d2g.data_ptr(), mask.data_ptr(), natural.data_ptr(),
+        None if rows is None else rows.data_ptr(), out.data_ptr(), C, R,
+        k - 1, G, natural.shape[1], int(matern), graph.d_floor, stream)
+    if err != 0:
+        raise RuntimeError(f"factor_build kernel launch failed: CUDA error "
+                           f"{err}")
+    vecchia_linv.launches += 1
+    return out
+
+
+def vecchia_linv(graph, natural_shape: torch.Tensor,
+                 rows: torch.Tensor | None = None) -> torch.Tensor:
     """Compressed inverse-Cholesky factor [C, n, m+1] for natural shape
-    params [C, n_shape].
+    params [C, n_shape] (or [C, R, m+1] at the graph rows ``rows``).
 
     Row i encodes the conditional N(x_i | x_parents):
       linv[i, 0]   = 1/sqrt(d_i)
       linv[i, 1:j] = -b_ij / sqrt(d_i)
     where b = Knn^-1 Kni and d = 1 - Kni' b.  Padded parent slots produce
     exact zeros.  The correlations come from the host-f64 ``nn_dist2``, so
-    no coordinate cancellation enters the factor."""
-    K = correlation_from_sqdist(graph.covfun, graph.nn_dist2, natural_shape)
-    return linv_rows_from_K(K, graph.nn_mask, graph.d_floor)
+    no coordinate cancellation enters the factor.  float32 on a card is one
+    ``factor_build`` launch (``vecchia_linv.launches`` counts them); the
+    CPU, and float64 anywhere, run ``vecchia_linv_reference``."""
+    if natural_shape.device.type == "cuda" and (
+            natural_shape.dtype == graph.nn_dist2.dtype == torch.float32):
+        return factor_build_cuda(graph, natural_shape.contiguous(), rows)
+    d2g, mask = graph.nn_dist2, graph.nn_mask
+    if rows is not None:
+        d2g, mask = d2g[rows], mask[rows]
+    return vecchia_linv_reference(graph.covfun, d2g, mask, natural_shape,
+                                  graph.d_floor)
+
+
+vecchia_linv.launches = 0
 
 
 def ordered_sum(vals: torch.Tensor, plan) -> torch.Tensor:

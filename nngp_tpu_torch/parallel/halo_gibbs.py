@@ -47,8 +47,7 @@ from nngp_tpu_torch.models.gaussian import (
     _proposal_chol,
     run_cycle,
 )
-from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
-from nngp_tpu_torch.ops.vecchia import linv_rows_from_K, ordered_sum
+from nngp_tpu_torch.ops.vecchia import ordered_sum, vecchia_linv
 from nngp_tpu_torch.parallel.chains import make_sharded_cycle_fn
 from nngp_tpu_torch.parallel.collectives import on_wire
 from nngp_tpu_torch.parallel.halo import (
@@ -109,10 +108,10 @@ def psum64(terms, group):
 
 def halo_vecchia_linv(graph, natural, shard: Shard):
     """The factor [C, n, m+1] at this rank's need rows
-    (``ops/vecchia.py:vecchia_linv``'s row arithmetic), zeros elsewhere."""
+    (``ops/vecchia.py:vecchia_linv`` at those rows: one ``factor_build``
+    launch on a card), zeros elsewhere."""
     rows = shard.rank.need
-    K = correlation_from_sqdist(graph.covfun, graph.nn_dist2[rows], natural)
-    vals = linv_rows_from_K(K, graph.nn_mask[rows], graph.d_floor)
+    vals = vecchia_linv(graph, natural, rows)
     out = vals.new_zeros((vals.shape[0], graph.n, vals.shape[-1]))
     out[:, rows] = vals
     return out

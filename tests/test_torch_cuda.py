@@ -9,6 +9,8 @@ tests compare the card with is held against nngp_tpu by the other
 tests/test_torch_*.py files.
 """
 
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -276,6 +278,148 @@ def test_factor_rows_kernel_refuses_what_it_does_not_take():
     K18 = torch.eye(18, device=dev).expand(1, 4, 18, 18).contiguous()
     with pytest.raises(ValueError, match="at most 16"):
         V.linv_rows_from_K(K18, torch.ones(4, 18, device=dev))
+
+
+# --- the fused factor build -------------------------------------------------
+
+# the fused build against its twin: |a - b| / (|b| + 1e-3) (chip_smoke.py's
+# FACTOR_TOL_REL and FACTOR_TOL_REL_MATERN)
+BUILD_TOL = {"exponential": 1e-4, "matern": 1e-3}
+
+
+@functools.cache
+def _build_geometry(family, m, n=300):
+    """(nn_dist2, nn_mask, d_floor) of a port graph of ``n`` seeded sites
+    for ``family`` at ``m`` neighbours (lon/lat for the sphere, 3-D for
+    space-time; m = 0 is the m = 1 graph's first slot), on the host."""
+    from nngp_tpu_torch.preprocess.dedupe import dedupe_and_match
+    from nngp_tpu_torch.preprocess.graph import build_graph
+    from nngp_tpu_torch.preprocess.ordering import reorder_locations
+
+    rng = np.random.default_rng(m)
+    lonlat = family.endswith("sphere")
+    locs = rng.uniform(size=(n, 3 if family.endswith("spacetime") else 2))
+    if lonlat:
+        locs = locs * [20.0, 15.0] + [-100.0, 30.0]
+    maps = dedupe_and_match(
+        locs, perm_fn=lambda L: reorder_locations(L, "maxmin", lonlat=lonlat))
+    graph, _ = build_graph(maps, m=max(m, 1), covfun=family)
+    k = m + 1
+    return (np.ascontiguousarray(graph.nn_dist2[:, :k, :k]),
+            np.ascontiguousarray(graph.nn_mask[:, :k]), graph.d_floor)
+
+
+def _build_case(family, m, chains, dev):
+    """(graph view on the card, natural [chains, n_shape]): each chain's
+    ranges at 0.5-2x the median neighbour distance of the m = 5 geometry,
+    Matérn's nu in (0.5, 1) (the sampler's band) and, every third chain,
+    in (1, 3.4) at a quarter of those ranges (the recurrence's l = 1..3;
+    smoother and farther, the blocks are so near singular that the rows
+    amplify an ulp of K past any row tolerance)."""
+    from types import SimpleNamespace
+
+    d2g, mask, d_floor = _build_geometry(family, m)
+    ref = _build_geometry(family, 5)[0]
+    med = [np.sqrt(np.median(ref[..., j][ref[..., j] > 0]))
+           for j in range(ref.shape[-1])]
+    rng = np.random.default_rng(chains)
+    nat = np.asarray(med)[None] * rng.uniform(0.5, 2, (chains, len(med)))
+    if family.startswith("matern"):
+        nu = rng.uniform(0.5, 1.0, chains)
+        nu[2::3] = rng.uniform(1.0, 3.4, len(nu[2::3]))
+        nat[2::3] *= 0.25
+        nat = np.concatenate([nat, nu[:, None]], 1)
+    g = SimpleNamespace(covfun=family, d_floor=d_floor, n=mask.shape[0],
+                        nn_dist2=torch.tensor(d2g, device=dev),
+                        nn_mask=torch.tensor(mask, device=dev))
+    return g, torch.tensor(nat, dtype=torch.float32, device=dev)
+
+
+def _rel(got, want):
+    return ((got - want).abs() / (want.abs() + 1e-3)).max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 96])
+@pytest.mark.parametrize("m", [0, 1, 5, 16])
+@pytest.mark.parametrize("family", ["exponential_isotropic",
+                                    "exponential_sphere",
+                                    "exponential_scaledim",
+                                    "exponential_spacetime",
+                                    "matern_isotropic", "matern_sphere",
+                                    "matern_scaledim", "matern_spacetime"])
+def test_factor_build_kernel_matches_twin(family, m, chains):
+    """factor_build against vecchia_linv_reference on the card, 300 sites
+    (ragged last block): one launch a call, repeat calls bit for bit,
+    padded slots exactly 0, rows within BUILD_TOL."""
+    from nngp_tpu_torch.ops import vecchia as V
+
+    g, nat = _build_case(family, m, chains, _card())
+    before = V.vecchia_linv.launches
+    got = V.vecchia_linv(g, nat)
+    again = V.vecchia_linv(g, nat)
+    torch.cuda.synchronize()
+    assert V.vecchia_linv.launches == before + 2
+    assert got.shape == (chains, g.n, m + 1)
+    assert torch.isfinite(got).all() and torch.equal(got, again)
+    assert torch.all(got[..., g.nn_mask == 0] == 0)
+    want = V.vecchia_linv_reference(family, g.nn_dist2, g.nn_mask, nat,
+                                    g.d_floor)
+    rel = _rel(got, want)
+    assert rel <= BUILD_TOL[family.split("_")[0]], rel
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["exponential_sphere", "matern_spacetime"])
+def test_factor_build_rows_subset_on_card(family):
+    """A non-contiguous, unsorted row list (int64 and int32) gives the
+    whole build's rows bit for bit, and halo_vecchia_linv puts them in
+    place, one launch each."""
+    from types import SimpleNamespace
+
+    from nngp_tpu_torch.ops import vecchia as V
+    from nngp_tpu_torch.parallel.halo_gibbs import halo_vecchia_linv
+
+    dev = _card()
+    g, nat = _build_case(family, 5, 3, dev)
+    whole = V.vecchia_linv(g, nat)
+    rows = torch.randperm(g.n, generator=torch.Generator().manual_seed(1))
+    rows = rows[: g.n // 3].to(dev)
+    for idx in (rows, rows.int()):
+        before = V.vecchia_linv.launches
+        got = V.vecchia_linv(g, nat, idx)
+        full = halo_vecchia_linv(g, nat, SimpleNamespace(
+            rank=SimpleNamespace(need=idx)))
+        torch.cuda.synchronize()
+        assert V.vecchia_linv.launches == before + 2
+        assert torch.equal(got, whole[:, rows])
+        assert torch.equal(full[:, rows], whole[:, rows])
+        rest = torch.ones(g.n, dtype=torch.bool, device=dev)
+        rest[rows] = False
+        assert torch.all(full[:, rest] == 0)
+
+
+@pytest.mark.gpu
+def test_factor_build_refuses_what_it_does_not_take():
+    from types import SimpleNamespace
+
+    from nngp_tpu_torch.ops import vecchia as V
+
+    dev = _card()
+    g, nat = _build_case("matern_sphere", 5, 3, dev)
+    with pytest.raises(TypeError, match="float32"):
+        V.factor_build_cuda(g, nat.double())
+    with pytest.raises(ValueError, match="expected"):
+        V.factor_build_cuda(g, nat[:, :1].contiguous())
+    big = SimpleNamespace(covfun="exponential_sphere", d_floor=1e-12,
+                          nn_dist2=torch.zeros(4, 18, 18, 1, device=dev),
+                          nn_mask=torch.ones(4, 18, device=dev))
+    with pytest.raises(ValueError, match="at most 16"):
+        V.vecchia_linv(big, nat[:, :1].contiguous())
+    # float64 on the card runs the twin, no launch
+    before = V.vecchia_linv.launches
+    assert V.vecchia_linv(g, nat.double()).dtype == torch.float64
+    assert V.vecchia_linv.launches == before
 
 
 # --- Matérn, prediction, save/load on the card -------------------------------

@@ -176,7 +176,7 @@ def test_am_ab_arms_run(small_hm):
         assert row["arm"] == arm and row["iterations"] == 60
         assert all(math.isfinite(v) for _, v in leaves(row))
         assert row["kernel_launches"] == {"chromatic_sweeps": 0,
-                                          "factor_rows": 0}   # CPU: twins
+                                          "factor_build": 0}  # CPU: twins
     with pytest.raises(ValueError, match="arm"):
         am_ab.arm_fit("nope", 1, "cpu")
 
