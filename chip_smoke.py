@@ -553,7 +553,8 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
     from zero; fails unless every iteration launched the sweep kernel
     ``per_iteration`` times, the fused factor build ran once for the cycle's
     factor and twice an ASIS pair (``run_counted.factor_launches``), the
-    K-input factor rows never, and every state is finite."""
+    K-input factor rows never (``run_counted.factor_rows_launches``), and
+    every state is finite."""
     import torch
 
     import nngp_tpu_torch
@@ -570,16 +571,19 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
     secs = time.perf_counter() - t
     launches = sweep.chromatic_sweeps.launches
     run_counted.factor_launches = vecchia_linv.launches
+    run_counted.factor_rows_launches = linv_rows_from_K.launches
     if launches != n_iterations * per_iteration:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
     want = 1 + 2 * kw.get("covparams_steps", 1) * n_iterations
-    if run_counted.factor_launches != want or linv_rows_from_K.launches:
+    if (run_counted.factor_launches != want
+            or run_counted.factor_rows_launches):
         raise RuntimeError(f"run launched the factor build "
                            f"{run_counted.factor_launches} times in "
                            f"{n_iterations} iterations, expected {want}, and "
                            f"the K-input factor rows "
-                           f"{linv_rows_from_K.launches} times, expected 0")
+                           f"{run_counted.factor_rows_launches} times, "
+                           "expected 0")
     if mc.iterations != start + n_iterations:
         raise RuntimeError(f"iterations {start} -> {mc.iterations}, not "
                            f"+{n_iterations}")
@@ -855,8 +859,6 @@ def factor_build_ops(g, nat):
     CF2 steps this data needs; then the row body."""
     import torch
 
-    from nngp_tpu_torch.ops.bessel import _split_order
-
     k = g.nn_mask.shape[1]
     G = g.nn_dist2.shape[-1]
     i, j = torch.tril_indices(k, k, -1, device=nat.device)
@@ -871,7 +873,9 @@ def factor_build_ops(g, nat):
     else:
         live = live & (d > 1e-8)
         x = torch.clamp_min(d, 1e-8)
-        l, mu = _split_order(nat[:, G][:, None, None].expand_as(x))
+        # kv's split nu = mu + l, |mu| <= 1/2
+        l = torch.floor(nat[:, G] + 0.5)[:, None, None].expand_as(x)
+        mu = nat[:, G][:, None, None] - l
         series, big = live & (x <= 0.29), live & (x > 0.29)
         cf2 = big & (x > 2.0)
         ops += (float(series.sum()) * OPS_SERIES
@@ -1700,10 +1704,11 @@ def main():
     if not np.isfinite(tab["table"]).all():
         raise RuntimeError("non-finite covariance estimates")
     factor_launches = run_counted.factor_launches
+    fr_main_launches = run_counted.factor_rows_launches
     phase("main path", f"run 25 iterations x 3 chains: {run_s:.3f} s = "
           f"{1e3 * run_s / 25:.2f} ms/iteration (cold), sweep kernel "
           f"launches {launches}, factor build launches {factor_launches} "
-          "(K-input factor rows 0)", t)
+          f"(K-input factor rows {fr_main_launches})", t)
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(tab["names"], tab["table"])}) + f" columns {tab['columns']}")
@@ -2005,9 +2010,8 @@ def main():
         "replaces": "nngp_tpu/ops/vecchia.py:83 (linv_rows_from_K, fused "
                     "by XLA under nngp_tpu/models/gaussian.py:805's jit; "
                     "not a Pallas kernel)",
-        "launches": fr_launches,
-        "launches_in": "the audits phase's same-K figures: off the main "
-                       "path, which runs factor_build",
+        "launches": fr_main_launches,
+        "audits_launches": fr_launches,
         **{k: fr["exponential_sphere 3 chains"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")},

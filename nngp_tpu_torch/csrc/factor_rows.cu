@@ -47,8 +47,7 @@
 // break: a frozen lane's h and s never change again.  The per-chain Matérn
 // quantities (mu, l, the Chebyshev Gamma ratios, lgamma, the series' g)
 // are computed once a chain in each block, by one thread, in the twin's
-// order (ops/covariance.py:matern_chain_constants), so the build stays one
-// launch.
+// order (matern_chain), so the build stays one launch.
 //
 // Bound.  factor_rows reads K once and writes the rows: (k^2 + k) x 4 bytes
 // a (chain, row), 168 B at m = 5.  factor_build reads the geometry once,
@@ -88,8 +87,7 @@ namespace {
 
 constexpr int kPart = FACTOR_PART;
 constexpr int kMaxM = 16;
-// The per-chain Matérn quantities, in the order of
-// ops/covariance.py:matern_chain_constants: nu, mu = nu - l, l,
+// The per-chain Matérn quantities (matern_chain): nu, mu = nu - l, l,
 // fact = pi mu / sin(pi mu), gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu),
 // lognorm = (1 - nu) ln 2 - lgamma(nu), g = Gamma(1-nu)/Gamma(1+nu).
 constexpr int kMaternConsts = 10;

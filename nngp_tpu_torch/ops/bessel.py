@@ -55,24 +55,13 @@ def _beschb(mu):
     return gam1, gam2, gam2 - mu * gam1, gam2 + mu * gam1
 
 
-def _split_order(nu):
-    """nu = mu + l with l = floor(nu + 1/2), so |mu| <= 1/2: (l, mu)."""
-    l = torch.floor(nu + 0.5)
-    return l, nu - l
-
-
-def _temme_fact(mu, eps=1e-12):
-    """pi mu / sin(pi mu), 1 at mu = 0: the series' leading factor."""
-    pimu = math.pi * mu
-    return torch.where(pimu.abs() < eps, torch.ones_like(pimu),
-                       pimu / torch.sin(pimu))
-
-
 def _temme_small_x(x, mu):
     """K_mu(x), K_{mu+1}(x) for x <= 2 via Temme's series."""
     eps = 1e-12
     x2 = 0.5 * x
-    fact = _temme_fact(mu, eps)
+    pimu = math.pi * mu
+    fact = torch.where(pimu.abs() < eps, torch.ones_like(pimu),
+                       pimu / torch.sin(pimu))
     d = -torch.log(x2)
     e = mu * d
     fact2 = torch.where(e.abs() < eps, torch.ones_like(e), torch.sinh(e) / e)
@@ -157,7 +146,9 @@ def kv(nu, x) -> torch.Tensor:
     dtype = (torch.float64 if torch.float64 in (nu.dtype, x.dtype)
              else torch.float32)
     nu, x = torch.broadcast_tensors(nu.to(dtype), x.to(dtype))
-    l, mu = _split_order(nu)
+    # split nu = mu + l with |mu| <= 1/2
+    l = torch.floor(nu + 0.5)
+    mu = nu - l
     x_small = torch.clamp_max(x, 2.0)
     x_big = torch.clamp_min(x, 2.0)
     ks_mu, ks_mu1 = _temme_small_x(torch.clamp_min(x_small, 1e-30), mu)

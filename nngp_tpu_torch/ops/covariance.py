@@ -32,7 +32,7 @@ import math
 import numpy as np
 import torch
 
-from nngp_tpu_torch.ops.bessel import _beschb, _split_order, _temme_fact, kv
+from nngp_tpu_torch.ops.bessel import _beschb, kv
 
 COVFUN_FAMILIES = (
     "exponential_isotropic",
@@ -146,7 +146,9 @@ def _matern_comp_small(x: torch.Tensor, nu) -> torch.Tensor:
 
     with g from the Chebyshev Gamma ratios of the Bessel Temme series (no
     lgamma cancellation).  Valid for nu in (0.5, 1), the sampler's band."""
-    g = _matern_series_g(nu)
+    mu = 1.0 - nu                       # in (0, 0.5)
+    _, _, gampl, gammi = _beschb(mu)    # 1/Gamma(1+mu), 1/Gamma(1-mu)
+    g = gammi / (mu * (1.0 - mu) * gampl)
     q = 0.25 * x * x
     t2 = torch.ones_like(x)
     S2 = t2
@@ -162,39 +164,13 @@ def _matern_comp_small(x: torch.Tensor, nu) -> torch.Tensor:
     return g * torch.exp(2.0 * nu * torch.log(xh)) * S2 - S1
 
 
-def _matern_series_g(nu):
-    """g = Gamma(1-nu)/Gamma(1+nu) of the complementary series, from the
-    Chebyshev Gamma ratios at mu = 1 - nu."""
-    mu = 1.0 - nu                       # in (0, 0.5)
-    _, _, gampl, gammi = _beschb(mu)    # 1/Gamma(1+mu), 1/Gamma(1-mu)
-    return gammi / (mu * (1.0 - mu) * gampl)
-
-
-def _matern_lognorm(nu):
-    """log(2^{1-nu} / Gamma(nu))."""
-    return (1.0 - nu) * math.log(2.0) - torch.lgamma(nu)
-
-
-def matern_chain_constants(nu: torch.Tensor) -> torch.Tensor:
-    """The per-chain quantities of the Matérn correlation at smoothness nu
-    [C], as [C, 10]: nu, mu and l of ``kv``'s split nu = mu + l, Temme's
-    pi mu / sin(pi mu), the Chebyshev Gamma ratios gam1, gam2,
-    1/Gamma(1+mu), 1/Gamma(1-mu), the log normaliser and the series' g.
-    ``csrc/factor_rows.cu:matern_chain`` computes the same, in this order,
-    once a chain in each block; this function composes the helpers that
-    ``_matern`` and ``kv`` call, so the two cannot drift apart."""
-    l, mu = _split_order(nu)
-    return torch.stack([nu, mu, l, _temme_fact(mu), *_beschb(mu),
-                        _matern_lognorm(nu), _matern_series_g(nu)], dim=-1)
-
-
 def _matern(d: torch.Tensor, nu) -> torch.Tensor:
     """Matérn correlation at scaled distance d (range already applied):
     the complementary series for d <= 0.29, the 2^{1-nu}/Gamma(nu) d^nu
     K_nu(d) product beyond, and exactly 1 at d <= 1e-8 (the diagonal)."""
     nu = torch.as_tensor(nu, dtype=d.dtype, device=d.device)
     safe_d = torch.clamp_min(d, 1e-8)
-    lognorm = _matern_lognorm(nu)
+    lognorm = (1.0 - nu) * math.log(2.0) - torch.lgamma(nu)
     val_big = torch.exp(lognorm + nu * torch.log(safe_d)) * kv(nu, safe_d)
     x_small = torch.clamp_max(safe_d, _MATERN_SMALL_X)
     val_small = 1.0 - _matern_comp_small(x_small, nu)

@@ -242,7 +242,7 @@ def factor_build_cuda(graph, natural: torch.Tensor,
                       rows: torch.Tensor | None = None) -> torch.Tensor:
     """The ``factor_build`` kernel (``csrc/factor_rows.cu``): the factor
     [C, R, m+1] at the graph's rows (all n, or the R rows of ``rows``, an
-    int32/int64 index in [0, n) that is not checked) from its
+    int32/int64 index in [0, n)) from its
     ``nn_dist2`` [n, k, k, G] and ``nn_mask`` [n, k] and natural shape
     params [C, n_shape], float32 contiguous on one card; launched on the
     current stream, counted in ``vecchia_linv.launches``."""
@@ -279,6 +279,11 @@ def factor_build_cuda(graph, natural: torch.Tensor,
                             f"{tuple(rows.shape)} on {rows.device}, expected "
                             f"a 1-D int32/int64 index on {natural.device}")
         rows = rows.to(torch.int64).contiguous()
+        lo, hi = (torch.stack(torch.aminmax(rows)).tolist() if len(rows)
+                  else (0, 0))
+        if lo < 0 or hi >= n:
+            raise ValueError(f"factor_build: rows holds {lo}..{hi}, "
+                             f"expected indices in [0, {n})")
     if natural.device.type != "cuda":
         raise TypeError(f"factor_build: the tensors are on "
                         f"{natural.device}, the kernel takes a CUDA device's")

@@ -2,25 +2,22 @@
 nngp_tpu's as its sampler runs it (jitted, where XLA fuses the correlation
 and each multiply-subtract of the factor), for all eight families, and the
 CPU side of the ``factor_build`` kernel (``csrc/factor_rows.cu``): its
-plain twin ``vecchia_linv_reference``, the per-chain Matérn quantities the
-kernel computes once a chain, the halo row subset, and the wrapper's
-refusals.
+plain twin ``vecchia_linv_reference``, the halo row subset, and the
+wrapper's refusals.
 
 Tolerances (those of tests/test_torch_ops.py, tests/test_torch_matern.py
 and tests/test_torch_factor_rows.py):
 - at the initial states (2 chains, m = 5): rtol 1e-4 / atol 1e-5 against
   jitted nngp_tpu;
-- the exponential families at 2.5 median neighbour distances, where the
+- all eight families at 2.5 median neighbour distances, where the
   conditional variance falls and amplifies an ulp of K, both builds
   against the float64 oracle (tests/test_torch_matern.py's bounds): the
   port's largest row error within 1.5x jitted nngp_tpu's + 1e-6, its
-  log-determinant within 1e-3.  The Matérn families there are held on the
-  same K (tests/test_torch_factor_rows.py, tests/test_torch_matern.py):
-  across the two Bessel codes the K-entry error, not the build, decides;
-- the per-chain Matérn quantities: rtol 2e-6 / atol 2e-6 (float32 lgamma
-  and sin of torch against XLA's: lgamma(nu) near its root at nu = 1 is
-  good to an absolute 1e-6, which the correlation takes as a relative
-  1e-6; mu and l exactly).
+  log-determinant within 1e-3.  matern_sphere and matern_scaledim miss
+  those bounds (ROADMAP.md, Queue 3) and are marked so, strictly, until
+  that is repaired; at that geometry the port's correlations themselves
+  are held to nngp_tpu's against the float64 ones: the largest and the
+  mean error of K within 1.5x jitted nngp_tpu's.
 
 The card's kernel against this twin is tests/test_torch_cuda.py's
 (marker gpu).
@@ -32,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from nngp_tpu.ops import bessel as jbessel
 from nngp_tpu.ops.vecchia import vecchia_linv as jax_linv
 from nngp_tpu_torch.interop import from_numpy
 from nngp_tpu_torch.ops import covariance as tcov
@@ -75,7 +71,16 @@ def test_reference_matches_jitted_nngp_tpu(family):
     assert torch.equal(tvec.vecchia_linv(g, natural), got)
 
 
-@pytest.mark.parametrize("family", tcov.COVFUN_FAMILIES[:4])
+NEAR_SINGULAR_FAULT = pytest.mark.xfail(
+    strict=True, reason="ROADMAP.md Queue 3: at nu 0.98 the port's row "
+    "error is 2.2x nngp_tpu's (matern_sphere) and its log-determinant "
+    "error 1.3e-3 (matern_scaledim; nngp_tpu's 1.4e-3)")
+
+
+@pytest.mark.parametrize("family", [
+    pytest.param(f, marks=NEAR_SINGULAR_FAULT)
+    if f in ("matern_sphere", "matern_scaledim") else f
+    for f in tcov.COVFUN_FAMILIES])
 def test_reference_near_singular(family):
     mc, g, _ = _port(family)
     natural = _natural(mc)
@@ -91,30 +96,31 @@ def test_reference_near_singular(family):
         assert abs(logdet_err) < 1e-3
 
 
-def test_matern_chain_constants_match_nngp_tpu():
-    """matern_chain_constants (what the kernel computes once a chain) at
-    smoothness across the kernel's range (0, 3.5], the sampler's band
-    (0.5, 1) included, against nngp_tpu's split, Chebyshev Gamma ratios,
-    Temme factor, log normaliser and series g."""
-    nu = np.concatenate([np.random.default_rng(3).uniform(0.05, 3.4, 200),
-                         [0.5001, 0.75, 0.9999]]).astype(np.float32)
-    got = tcov.matern_chain_constants(torch.as_tensor(nu)).numpy()
-    assert got.shape == (len(nu), 10) and got.dtype == np.float32
-    jnu = jnp.asarray(nu)
-    l = jnp.floor(jnu + 0.5)
-    mu = jnu - l
-    pimu = jnp.pi * mu
-    fact = jnp.where(jnp.abs(pimu) < 1e-12, 1.0, pimu / jnp.sin(pimu))
-    gam1, gam2, gampl, gammi = jbessel._beschb(mu)
-    lognorm = (1.0 - jnu) * jnp.log(2.0) - jax.lax.lgamma(jnu)
-    mu2 = 1.0 - jnu
-    _, _, gp2, gm2 = jbessel._beschb(mu2)
-    g = gm2 / (mu2 * (1.0 - mu2) * gp2)
-    want = np.stack([np.asarray(a) for a in (
-        jnu, mu, l, fact, gam1, gam2, gampl, gammi, lognorm, g)], -1)
-    np.testing.assert_array_equal(got[:, :3], want[:, :3])
-    np.testing.assert_allclose(got, want, rtol=2e-6, atol=2e-6)
-    assert set(np.unique(got[:, 2])) <= {0.0, 1.0, 2.0, 3.0}
+@pytest.mark.parametrize("family", tcov.COVFUN_FAMILIES[4:])
+def test_matern_correlation_near_singular(family):
+    """At the near-singular geometry the port's Matérn correlations are at
+    least as close to the float64 ones as jitted nngp_tpu's: where the
+    rows miss their bounds (test_reference_near_singular) it is the
+    amplification of an ulp of K by the conditional variance, not a less
+    accurate K."""
+    from nngp_tpu.ops.covariance import correlation_from_sqdist as jax_corr
+    from nngp_tpu_torch.ops.numpy_ref import np_correlation
+
+    mc, g, _ = _port(family)
+    natural = _natural(mc)
+    coords = lonlat_to_xyz(mc.locs) if "sphere" in family else mc.locs
+    NN = np.asarray(mc.NNarray)
+    valid = (NN >= 0)[:, :, None] & (NN >= 0)[:, None, :]
+    pts = np.asarray(coords, np.float64)[np.maximum(NN, 0)]
+    got = tcov.correlation_from_sqdist(family, g.nn_dist2, natural).numpy()
+    corr = jax.jit(lambda nat: jax_corr(family, mc.graph.nn_dist2, nat))
+    for c, nat in enumerate(natural.numpy()):
+        want = np_correlation(family, pts, nat.astype(np.float64))
+        err_t = np.abs(got[c] - want)[valid]
+        err_j = np.abs(np.asarray(corr(jnp.asarray(nat))) - want)[valid]
+        assert err_t.max() <= 1.5 * err_j.max(), (err_t.max(), err_j.max())
+        assert err_t.mean() <= 1.5 * err_j.mean(), (err_t.mean(),
+                                                    err_j.mean())
 
 
 @pytest.mark.parametrize("family", ["exponential_sphere",
@@ -170,6 +176,10 @@ def _fake_graph(m=5, G=1, n=10, covfun="exponential_sphere", **kw):
      ValueError, "expected"),
     (dict(rows=torch.zeros(4)), TypeError, "rows is torch.float32"),
     (dict(rows=torch.zeros(2, 2, dtype=torch.int64)), TypeError, "1-D"),
+    (dict(rows=torch.tensor([3, 10, 1])), ValueError,
+     r"rows holds 1..10, expected indices in \[0, 10\)"),
+    (dict(rows=torch.tensor([-1, 2], dtype=torch.int32)), ValueError,
+     r"rows holds -1..2"),
     (dict(graph=dict(covfun="gaussian")), ValueError, "unknown"),
     (dict(), TypeError, "CUDA"),
 ])
