@@ -78,14 +78,18 @@ with a nonzero exit and no "ok" line:
                   at most 1.5 x the jitted JAX script's CPU figure.  The
                   fused factor_build (the main path's) against
                   vecchia_linv_reference: max relative row difference at
-                  most 1e-4 (exponential) and 1e-3 (Matérn), the count of
-                  differing elements, median ms of the kernel, the twin
-                  and the yardstick (correlation_from_sqdist, then the
-                  batched solvers) beside the bound (bytes; operations
-                  counted from this run's data for Matérn); its
-                  log-diagonal against the float64 factor of float64
-                  correlations at the same two states, at most 1.5 x the
-                  JAX script's full (total) figure
+                  most 1e-4 (Matérn's rows built in float64 by both), the
+                  count of differing elements, median ms of the kernel,
+                  the twin and the yardstick (correlation_from_sqdist,
+                  then the batched solvers; Matérn in float64) beside the
+                  bound (bytes; Matérn's float64 operations counted from
+                  this run's data, at the float64 rate); its log-diagonal
+                  against the float64 factor of float64 correlations at
+                  the same two states, at most 1.5 x the JAX script's full
+                  (total) figure; then the four Matérn families near
+                  singular (300 sites, ranges at 2.5 median neighbour
+                  distances, nu 0.54 and 0.98): log-determinant within
+                  1e-5 of the float64 oracle, rows within 1e-4 of the twin
  13. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
                   experiments by python -m, all at once, at cut sizes:
                   grb_guard, hm_mpsrf on the main path's fit, hm_crossval
@@ -201,12 +205,14 @@ MM_RAGGED = ((1, 4, 4), (65, 1028, 132), (512, 1024, 128), (130, 36, 260),
 MATERN_THETA = (0.006120802718214691, 0.75)
 MATERN_THETA_P = (0.006120802718214691 * 1.02, 0.7525)
 LOGDET_TOL = 1e-2   # proposal log-det difference, card against float64
-# factor rows kernel against its twin: |a - b| / (|b| + 1e-3), the CPU
+# factor rows kernels against their twins: |a - b| / (|b| + 1e-3), the CPU
 # test's bound against jitted nngp_tpu (tests/test_torch_factor_rows.py);
-# the fused build's Matérn rows: 1e-3 (its Bessel on the CUDA math library
-# against torch's kernels, an ulp of K amplified by 1/d in the rows)
+# the fused build's Matérn rows too (both in float64, rounded once)
 FACTOR_TOL_REL = 1e-4
-FACTOR_TOL_REL_MATERN = 1e-3
+# the fused Matérn build near singular (tests/test_torch_matern.py's 300-site
+# layouts, ranges at 2.5 median neighbour distances, nu 0.54 and 0.98): its
+# log-determinant against the float64 oracle
+NEAR_SINGULAR_LOGDET = 1e-5
 # its log-diagonal error against the float64 factor of the same K: at most
 # this times the jitted JAX script's figure on the CPU
 FACTOR_LOGDIAG = 1.5
@@ -448,13 +454,19 @@ def gather_probes(dev):
     return out
 
 
-def _bound(nbytes, flops=0.0):
+# H100 SXM float64 outside the tensor cores (NVIDIA's data sheet)
+F64_FLOPS_PER_S = 34e12
+
+
+def _bound(nbytes, flops=0.0, f64=False):
     """(ms, "bytes" or "operations"): the larger of the bytes over an H100
-    SXM's memory rate and the float32 operations over its float32 rate."""
+    SXM's memory rate and the operations over its float32 rate (its
+    float64 rate when ``f64``)."""
     from nngp_tpu_torch.experiments.sweep_bench import (F32_FLOPS_PER_S,
                                                         HBM_BYTES_PER_S)
 
-    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS_PER_S
+    rate = F64_FLOPS_PER_S if f64 else F32_FLOPS_PER_S
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, flops / rate
     return 1e3 * max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
 
 
@@ -796,32 +808,50 @@ def factor_rows(mc, mm):
     return out, logdiag
 
 
-# float32 operations of csrc/factor_rows.cu:factor_build, counted from its
-# code: + - x / max each 1, an fma 2, and each expf, logf, sinhf, coshf,
-# sqrtf SFU = 8 (the SFU's 16 a clock an SM against 128 float32 lanes).
+# Operations of csrc/factor_rows.cu:factor_build, counted from its code:
+# + - x / max each 1, an fma 2, and each transcendental and square root at
+# its cost.  Exponential runs in float32: expf and sqrtf on the SFU, 8 each
+# (its 16 a clock an SM against 128 float32 lanes).  Matérn runs in float64,
+# which has no SFU path: a double exp, log, sinh or cosh is ~10 fused
+# multiply-adds of its polynomial on the FMA pipe (20), a double square root
+# ~4 Newton fmas (8).
 SFU = 8
-OPS_DIST = 3 + SFU              # d2g / rr (G = 1), max, sqrtf; then K v
-OPS_EXP = 1 + SFU               # expf(-d)
-OPS_SERIES = 58 + 2 * SFU       # d <= 0.29: the complementary series
-OPS_TEMME = 360 + 4 * SFU       # 0.29 < d <= 2: Temme's set-up, 20 terms
-OPS_CF2_FIXED, OPS_CF2_STEP = 19 + 2 * SFU, 30   # d > 2: CF2, a step
-OPS_BIG = 4 + 2 * SFU           # exp(lognorm + nu log x) K_nu
-OPS_RECUR = 5                   # one upward recurrence step
+F64_TRANS, F64_SQRT = 20, 8
+# (operations, transcendentals, square roots) of each piece
+PIECES = {
+    "dist": (3, 0, 1),          # d2g / rr (G = 1), max, sqrt; then K v
+    "exp": (1, 1, 0),           # expf(-d)
+    "series": (58, 2, 0),       # d <= 0.29: the complementary series
+    "temme": (360, 4, 0),       # 0.29 < d <= 2: Temme's set-up, 20 terms
+    "cf2": (19, 1, 1),          # d > 2: CF2's set-up and end
+    "cf2_step": (30, 0, 0),     # one CF2 step
+    "big": (4, 2, 0),           # exp(lognorm + nu log x) K_nu
+    "recur": (5, 0, 0),         # one upward recurrence step
+}
 
 
-def _row_ops(m):
+def _ops(piece, f64):
+    ops, trans, roots = PIECES[piece]
+    return ops + trans * (F64_TRANS if f64 else SFU) + roots * (
+        F64_SQRT if f64 else SFU)
+
+
+def _row_ops(m, f64=False):
     """Operations of the unrolled row body at m neighbours."""
-    chol = sum(2 * j + 2 + SFU + 2 * j * (m - j - 1) + (m - j - 1)
+    root = F64_SQRT if f64 else SFU
+    chol = sum(2 * j + 2 + root + 2 * j * (m - j - 1) + (m - j - 1)
                for j in range(m))
     solves = sum(2 * i + 1 for i in range(m)) * 2
-    return chol + solves + 2 * m + 1 + SFU + 1 + 2 * m
+    return chol + solves + 2 * m + 1 + root + 1 + 2 * m
 
 
 def _cf2_steps(x, mu):
     """Steps ops/bessel.py:_cf2_large_x runs at each x > 2 before its lane
-    freezes (at most 40), replayed in float32 by the twin's recurrence."""
+    freezes (at most 40), replayed by the twin's recurrence in x's dtype
+    (frozen at 1e-10 in float64, 1e-8 in float32)."""
     import torch
 
+    eps = 1e-10 if x.dtype == torch.float64 else 1e-8
     b = 2.0 * (1.0 + x)
     d = 1.0 / b
     delh = d
@@ -846,30 +876,34 @@ def _cf2_steps(x, mu):
         delh = (b * d - 1.0) * delh
         dels = q * delh
         s = s + dels
-        stop = live & (dels.abs() < 1e-8 * s.abs())
+        stop = live & (dels.abs() < eps * s.abs())
         steps[stop] = i - 1
         live &= ~stop
     return steps
 
 
 def factor_build_ops(g, nat):
-    """The float32 operations factor_build does on these inputs: each
-    chain's valid strictly-lower pairs of every row (the entries the row
-    body reads), by the branch their distance takes and, beyond 2, by the
-    CF2 steps this data needs; then the row body."""
+    """The operations factor_build does on these inputs (float32 for the
+    exponential families, float64 for Matérn, as the kernel computes
+    them): each chain's valid strictly-lower pairs of every row (the
+    entries the row body reads), by the branch their distance takes and,
+    beyond 2, by the CF2 steps this data needs; then the row body."""
     import torch
 
+    f64 = g.covfun.startswith("matern")
+    dt = torch.float64 if f64 else torch.float32
     k = g.nn_mask.shape[1]
     G = g.nn_dist2.shape[-1]
     i, j = torch.tril_indices(k, k, -1, device=nat.device)
     valid = (g.nn_mask[:, i] * g.nn_mask[:, j]) > 0               # [n, P]
+    nat = nat.to(dt)
     rr = nat[:, :G] * nat[:, :G]
-    d2 = (g.nn_dist2[None, :, i, j] / rr[:, None, None]).sum(-1)   # [C, n, P]
-    d = torch.sqrt(torch.clamp_min(d2, 0.0))
+    d2 = (g.nn_dist2.to(dt)[None, :, i, j] / rr[:, None, None]).sum(-1)
+    d = torch.sqrt(torch.clamp_min(d2, 0.0))                     # [C, n, P]
     live = valid[None].expand_as(d)
-    ops = float(live.sum()) * OPS_DIST
-    if g.covfun.startswith("exponential"):
-        ops += float(live.sum()) * OPS_EXP
+    ops = float(live.sum()) * _ops("dist", f64)
+    if not f64:
+        ops += float(live.sum()) * _ops("exp", f64)
     else:
         live = live & (d > 1e-8)
         x = torch.clamp_min(d, 1e-8)
@@ -878,20 +912,32 @@ def factor_build_ops(g, nat):
         mu = nat[:, G][:, None, None] - l
         series, big = live & (x <= 0.29), live & (x > 0.29)
         cf2 = big & (x > 2.0)
-        ops += (float(series.sum()) * OPS_SERIES
-                + float((big & ~cf2).sum()) * OPS_TEMME
-                + float(cf2.sum()) * OPS_CF2_FIXED
-                + float(_cf2_steps(x[cf2], mu[cf2]).sum()) * OPS_CF2_STEP
-                + float(big.sum()) * OPS_BIG
-                + float(l[big].sum()) * OPS_RECUR)
-    return ops + nat.shape[0] * g.nn_mask.shape[0] * _row_ops(k - 1)
+        ops += (float(series.sum()) * _ops("series", f64)
+                + float((big & ~cf2).sum()) * _ops("temme", f64)
+                + float(cf2.sum()) * _ops("cf2", f64)
+                + float(_cf2_steps(x[cf2], mu[cf2]).sum())
+                * _ops("cf2_step", f64)
+                + float(big.sum()) * _ops("big", f64)
+                + float(l[big].sum()) * _ops("recur", f64))
+    return ops + nat.shape[0] * g.nn_mask.shape[0] * _row_ops(k - 1, f64)
 
 
 def _library_factor_build(g, nat):
     """The yardstick of the fused build (used nowhere in the port): the
     correlations by ``correlation_from_sqdist``, then PyTorch's batched
-    solvers (``_library_factor_rows``)."""
+    solvers (``_library_factor_rows``); for Matérn in float64 from the
+    widened inputs, rounded to float32 at the end, as the kernel
+    computes it."""
     from nngp_tpu_torch.ops.covariance import correlation_from_sqdist
+
+    if g.covfun.startswith("matern"):
+        d2g, mask, nat64 = (g.nn_dist2.double(), g.nn_mask.double(),
+                            nat.double())
+
+        def call64():
+            K = correlation_from_sqdist(g.covfun, d2g, nat64)
+            return _library_factor_rows(K, mask, g.d_floor)().float()
+        return call64
 
     def call():
         K = correlation_from_sqdist(g.covfun, g.nn_dist2, nat)
@@ -899,14 +945,80 @@ def _library_factor_build(g, nat):
     return call
 
 
+def near_singular(dev):
+    """The fused Matérn build near singular, on the card through the port's
+    own initialize: tests/test_torch_matern.py's 300-site layouts (seed
+    11, m = 5), every range at 2.5 median neighbour distances, nu 0.54 and
+    0.98 (s = -2.5, 3), the four Matérn families.  Each chain's
+    log-determinant error against the float64 oracle np_vecchia_linv (at
+    most NEAR_SINGULAR_LOGDET) and its rows against the twin's (at most
+    FACTOR_TOL_REL).  Returns {family: (largest |log-det error|, largest
+    relative difference from the twin, differing elements)}."""
+    import numpy as np
+    import torch
+
+    import nngp_tpu_torch
+    from nngp_tpu_torch.ops import vecchia as V
+    from nngp_tpu_torch.ops.covariance import shape_transform
+    from nngp_tpu_torch.ops.numpy_ref import np_vecchia_linv
+    from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
+
+    out = {}
+    for family in ("matern_isotropic", "matern_sphere", "matern_scaledim",
+                   "matern_spacetime"):
+        n = 300
+        rng = np.random.default_rng(11)
+        if "sphere" in family:
+            locs = np.stack([rng.uniform(-100, -80, n),
+                             rng.uniform(30, 45, n)], 1)
+        elif "spacetime" in family:
+            locs = rng.uniform(size=(n, 3))
+        else:
+            locs = rng.uniform(size=(n, 2))
+        mc = nngp_tpu_torch.initialize(
+            locs, rng.normal(size=n), m=5, n_chains=2, seed=2,
+            stationary_covfun=family, device=dev, verbose=False)
+        g = mc.graph
+        d2g = g.nn_dist2.cpu().numpy()
+        med = [np.median(np.sqrt(d2g[..., j][d2g[..., j] > 0]))
+               for j in range(d2g.shape[-1])]
+        sampled = np.array([list(np.log(2.5 * np.asarray(med))) + [s]
+                            for s in (-2.5, 3.0)], np.float32)
+        nat = shape_transform(mc.space_time_model["covfun"]["shape_params"],
+                              torch.as_tensor(sampled, device=dev))
+        kernel = V.factor_build_cuda(g, nat.contiguous())
+        twin = V.vecchia_linv_reference(family, g.nn_dist2, g.nn_mask, nat,
+                                        g.d_floor)
+        torch.cuda.synchronize()
+        rel = float(((kernel - twin).abs() / (twin.abs() + 1e-3)).max())
+        differ = int((kernel != twin).sum())
+        coords = lonlat_to_xyz(mc.locs) if "sphere" in family else mc.locs
+        rows = kernel.double().cpu().numpy()
+        worst = 0.0
+        for c, nt64 in enumerate(nat.cpu().numpy().astype(np.float64)):
+            oracle = np_vecchia_linv(coords, mc.NNarray, family, nt64)
+            worst = max(worst, abs(float(np.log(rows[c, :, 0]).sum()
+                                         - np.log(oracle[:, 0]).sum())))
+        out[family] = (worst, rel, differ)
+        print(f"  near singular {family}: log-det error vs float64 "
+              f"{worst:.3e} <= {NEAR_SINGULAR_LOGDET:g}, kernel vs twin max "
+              f"rel {rel:.3e}, {differ} of {kernel.numel()} elements differ",
+              flush=True)
+        if not (worst <= NEAR_SINGULAR_LOGDET and rel <= FACTOR_TOL_REL):
+            raise RuntimeError(f"factor build near singular, {family}: "
+                               f"log-det error {worst:.3e}, rel {rel:.3e}")
+    return out
+
+
 def factor_build(mc, mm):
     """The fused factor build (csrc/factor_rows.cu:factor_build, the main
     path's) against its plain twin vecchia_linv_reference on the card at
     the main path's shapes (the Heavy-metals states tiled to 3 and 96
     chains, matern_sphere's at 3): the max relative row difference |a - b|
-    / (|b| + 1e-3) (at most FACTOR_TOL_REL, FACTOR_TOL_REL_MATERN for
-    Matérn), the count of differing elements, the median ms of the kernel,
-    the twin and the yardstick (21 calls each), and the bound.  Then its
+    / (|b| + 1e-3) (at most FACTOR_TOL_REL), the count of differing
+    elements, the median ms of the kernel, the twin and the yardstick (21
+    calls each), and the bound (Matérn's operations at the float64 rate).
+    Then its
     log-diagonal against the float64 factor of float64 correlations at
     factor_probe's and matern_probe's Heavy-metals states, at most
     FACTOR_LOGDIAG x the JAX scripts' full figure on the CPU.  Returns
@@ -933,8 +1045,7 @@ def factor_build(mc, mm):
     out = {}
     for label, (g, nat) in cases.items():
         nat = nat.contiguous()
-        tol = (FACTOR_TOL_REL_MATERN if g.covfun.startswith("matern")
-               else FACTOR_TOL_REL)
+        tol = FACTOR_TOL_REL
         kernel = V.factor_build_cuda(g, nat)
         twin = V.vecchia_linv_reference(g.covfun, g.nn_dist2, g.nn_mask, nat,
                                         g.d_floor)
@@ -945,7 +1056,7 @@ def factor_build(mc, mm):
         differ = int((kernel != twin).sum())
         nbytes = _nbytes(g.nn_dist2, g.nn_mask, nat, kernel)
         flops = factor_build_ops(g, nat)
-        bound, by = _bound(nbytes, flops)
+        bound, by = _bound(nbytes, flops, g.covfun.startswith("matern"))
         out[label] = {
             "shape": list(kernel.shape), "max_rel": rel, "differ": differ,
             "numel": kernel.numel(), "tol": tol,
@@ -1804,6 +1915,7 @@ def main():
     t = time.perf_counter()
     fr, fr_logdiag = factor_rows(mc, mm)
     fb, fb_logdiag = factor_build(mc, mm)
+    ns = near_singular(dev)
     del mm
     torch.cuda.empty_cache()
     phase("factor rows", "K-input kernel within "
@@ -1819,7 +1931,10 @@ def main():
               f"{v['bound_by']}, {v['differ']} elements differ)"
               for k, v in fb.items())
           + "; log-diagonal vs float64 correlations within " + ", ".join(
-              f"{e:.3e} <= {b:.3e}" for _, e, _, b in fb_logdiag), t)
+              f"{e:.3e} <= {b:.3e}" for _, e, _, b in fb_logdiag)
+          + "; Matérn near singular, log-det error vs float64 " + ", ".join(
+              f"{f} {e:.3e}" for f, (e, _, _) in ns.items())
+          + f" <= {NEAR_SINGULAR_LOGDET:g}", t)
 
     t = time.perf_counter()
     with tempfile.TemporaryDirectory() as td:
@@ -2003,7 +2118,10 @@ def main():
             "library_ms")},
         "matern_sphere": {k: fb["matern_sphere 3 chains"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")}}
+            "library_ms")},
+        "matern_precision": "float64 inside, rows rounded once to float32; "
+                            "bound at 34 TFLOP/s",
+        "near_singular_logdet_err": {f: e for f, (e, _, _) in ns.items()}}
         ] + [{
         "name": "factor_rows", "route": "cuda",
         "source": "nngp_tpu_torch/csrc/factor_rows.cu",

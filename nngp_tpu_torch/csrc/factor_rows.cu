@@ -12,7 +12,11 @@
 //                        distances nn_dist2 [n, k, k, G] f32 (G range
 //                        groups) and the natural shape params [C, n_shape]
 //                        (the G ranges, then Matérn's nu), for the rows
-//                        0..R-1 or a row list (halo mode).
+//                        0..R-1 or a row list (halo mode).  The
+//                        exponential families run in float32; the Matérn
+//                        ones widen those inputs (exactly) and run in
+//                        float64 through K, the Cholesky and the solves,
+//                        rounding each row entry once to float32.
 //
 // Replaces nngp_tpu's vecchia_linv (nngp_tpu/ops/vecchia.py:116, the rows
 // :83, the correlation ops/covariance.py:145 with Matérn's _matern :273 and
@@ -23,40 +27,52 @@
 // d = 1 - u'u into one rounding.  It is not a Pallas kernel: it is the
 // counterpart of XLA's fusion.
 //
-// Row body (factor_row): nngp_tpu_torch/ops/vecchia.py:linv_rows_reference
-// op for op: Cholesky sums in increasing t, the pivot clamped at 1e-12
-// before sqrtf, 1/L[j][j] then a multiply, the solves' divisions, d floored
-// at d_floor; each s - a*b is one fmaf(-a, b, s); sqrtf and the divisions
-// are IEEE (nvcc's -prec-sqrt and -prec-div defaults; no fast-math).  m = 0
-// gives rows of 1.
+// Row body (factor_row, on float or double values V):
+// nngp_tpu_torch/ops/vecchia.py:linv_rows_reference op for op: Cholesky
+// sums in increasing t, the pivot clamped at 1e-12 before the square root,
+// 1/L[j][j] then a multiply, the solves' divisions, d floored at d_floor.
+// In float each s - a*b is one fmaf(-a, b, s) (the twin's _msub: float32
+// products are exact in float64, so only the subtraction rounds); in double
+// it is __dmul_rn then __dsub_rn, two roundings, as _msub computes it on
+// float64 tensors.  Square roots and divisions are IEEE (sqrtf and
+// __fdiv_rn, nvcc's -prec-sqrt and -prec-div defaults; __dsqrt_rn and
+// __ddiv_rn; no fast-math).  m = 0 gives rows of 1.
 //
 // Correlation (factor_build): ops/covariance.py:correlation_from_sqdist op
-// for op, on the CUDA math library's expf, logf, sinhf, coshf and sqrtf:
-// d2 = sum_g d2g[g] / (r_g * r_g) in increasing g, d = sqrtf(max(d2, 0)),
-// then expf(-d) or the Matérn of ops/covariance.py:_matern (the
-// complementary series at d <= 0.29, 2^(1-nu)/Gamma(nu) d^nu K_nu(d)
-// beyond, exactly 1 at d <= 1e-8) with K_nu by ops/bessel.py (Temme's
-// series at d <= 2, Steed's CF2 beyond, the upward recurrence).  Every
-// product, sum and quotient of the correlation is pinned with __fmul_rn,
-// __fadd_rn, __fsub_rn and __fdiv_rn, so nvcc contracts none of them into
-// an fma and the order is the twin's as PyTorch's CUDA kernels evaluate it
-// (one rounding an op; a tensor divided by a Python number is a multiply by
-// its float reciprocal there, and n / x is (1 / x) * n).  Padded pairs take
-// the identity without an evaluation; the diagonal is 1 (the twin's
-// K * valid2 + eye * (1 - valid2) at d = 0).  CF2's per-lane freeze is a
-// break: a frozen lane's h and s never change again.  The per-chain Matérn
-// quantities (mu, l, the Chebyshev Gamma ratios, lgamma, the series' g)
-// are computed once a chain in each block, by one thread, in the twin's
-// order (matern_chain), so the build stays one launch.
+// for op: d2 = sum_g d2g[g] / (r_g * r_g) in increasing g, d = sqrt(max(d2,
+// 0)), then expf(-d) (float32, the CUDA math library's expf) or, in
+// float64, the Matérn of ops/covariance.py:_matern (the complementary
+// series at d <= 0.29, 2^(1-nu)/Gamma(nu) d^nu K_nu(d) beyond, exactly 1 at
+// d <= 1e-8) with K_nu by ops/bessel.py (Temme's series at d <= 2, Steed's
+// CF2 beyond, frozen at 1e-10 as the float64 twin freezes it, the upward
+// recurrence) on the CUDA math library's double exp, log, sinh, cosh, sin
+// and lgamma, which PyTorch's CUDA float64 kernels call.  Near singular
+// (ranges at a few neighbour distances, nu near 1) the conditional
+// variance d amplifies an ulp of K by 1/d, so a float32 K, however
+// accurate, decides the rows' error; hence Matérn's K stays in float64
+// through the Cholesky.  Every product, sum and quotient of the
+// correlation is pinned with __fmul_rn / __dmul_rn, __fadd_rn / __dadd_rn,
+// __fsub_rn / __dsub_rn and __fdiv_rn / __ddiv_rn, so nvcc contracts none
+// of them into an fma and the order is the twin's as PyTorch's CUDA kernels
+// evaluate it (one rounding an op; a tensor divided by a Python number is a
+// multiply by its reciprocal there, and n / x is (1 / x) * n).  Padded
+// pairs take the identity without an evaluation; the diagonal is 1 (the
+// twin's K * valid2 + eye * (1 - valid2) at d = 0).  CF2's per-lane freeze
+// is a break: a frozen lane's h and s never change again.  The per-chain
+// Matérn quantities (mu, l, the Chebyshev Gamma ratios, lgamma, the
+// series' g) are computed once a chain in each block, by one thread, in
+// the twin's order (matern_chain), so the build stays one launch.
 //
 // Bound.  factor_rows reads K once and writes the rows: (k^2 + k) x 4 bytes
 // a (chain, row), 168 B at m = 5.  factor_build reads the geometry once,
 // n (k^2 G + k) x 4 bytes, and writes C R k x 4: 15.4 MB at 3 chains and
 // 64,274 rows (4.6 us at 3.35 TB/s), 158.9 MB at 96 chains; the exponential
 // correlation's 15 evaluations a (chain, row) at m = 5 are far below that.
-// Matérn's Bessel (20 series terms or up to 40 CF2 steps an evaluation)
-// makes it bound by operations.  Design: one thread a (chain, row), with L,
-// u and z in registers (m is a template parameter, every loop unrolled).
+// Matérn's Bessel in float64 (20 series terms or up to 40 CF2 steps an
+// evaluation, on the card's float64 rate, half its float32 one, with no
+// special-function unit) makes it bound by operations.  Design: one
+// thread a (chain, row), with L, u and z in registers (m is a template
+// parameter, every loop unrolled).
 // factor_rows stages its slab of K through shared memory with coalesced
 // loads (row stride k^2 | 1, odd, so the threads' reads fall in distinct
 // banks) and its rows back the same way.  factor_build stages its T rows'
@@ -108,56 +124,89 @@ __device__ __forceinline__ float sub(float a, float b) {
 __device__ __forceinline__ float dvd(float a, float b) {
   return __fdiv_rn(a, b);
 }
-
-// The row body: kef(i, j) is entry (i, j) of the identity-forced K
-// (i >= j), mv the row's mask, out its k entries.
-template <int M, class Kef>
-__device__ __forceinline__ void factor_row(const Kef& kef, const float* mv,
-                                           float d_floor, float* out) {
-  if constexpr (M == 0) {
-    out[0] = 1.0f;
+__device__ __forceinline__ double mul(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ double add(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ double sub(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ double dvd(double a, double b) {
+  return __ddiv_rn(a, b);
+}
+// s - a*b as the twin's _msub: one fmaf in float, two roundings in double.
+__device__ __forceinline__ float msub(float s, float a, float b) {
+  return fmaf(-a, b, s);
+}
+__device__ __forceinline__ double msub(double s, double a, double b) {
+  return __dsub_rn(s, __dmul_rn(a, b));
+}
+__device__ __forceinline__ float root(float x) { return sqrtf(x); }
+__device__ __forceinline__ double root(double x) { return __dsqrt_rn(x); }
+// The pivot's clamp (the twin's clamp_min(s, 1e-12) in its dtype).
+template <class V>
+__device__ __forceinline__ V pivot_min() {
+  if constexpr (std::is_same_v<V, float>) {
+    return 1e-12f;
   } else {
-    float L[M][M];
+    return 1e-12;
+  }
+}
+
+// The row body on values V (float or double): kef(i, j) is entry (i, j)
+// of the identity-forced K (i >= j), mv the row's mask, out its k entries.
+// Its products and quotients outside msub feed no sum, so nvcc contracts
+// none of them; the divisions are IEEE in both types.
+template <int M, class V, class Kef>
+__device__ __forceinline__ void factor_row(const Kef& kef, const float* mv,
+                                           V d_floor, V* out) {
+  if constexpr (M == 0) {
+    out[0] = V(1);
+  } else {
+    V L[M][M];
 #pragma unroll
     for (int j = 0; j < M; ++j) {
-      float s = kef(1 + j, 1 + j);
+      V s = kef(1 + j, 1 + j);
 #pragma unroll
-      for (int q = 0; q < j; ++q) s = fmaf(-L[j][q], L[j][q], s);
-      s = s < 1e-12f ? 1e-12f : s;
-      L[j][j] = sqrtf(s);
-      const float inv_ljj = 1.0f / L[j][j];
+      for (int q = 0; q < j; ++q) s = msub(s, L[j][q], L[j][q]);
+      s = s < pivot_min<V>() ? pivot_min<V>() : s;
+      L[j][j] = root(s);
+      const V inv_ljj = V(1) / L[j][j];
 #pragma unroll
       for (int i = j + 1; i < M; ++i) {
-        float s2 = kef(1 + i, 1 + j);
+        V s2 = kef(1 + i, 1 + j);
 #pragma unroll
-        for (int q = 0; q < j; ++q) s2 = fmaf(-L[i][q], L[j][q], s2);
+        for (int q = 0; q < j; ++q) s2 = msub(s2, L[i][q], L[j][q]);
         L[i][j] = s2 * inv_ljj;
       }
     }
-    float u[M];
+    V u[M];
 #pragma unroll
     for (int i = 0; i < M; ++i) {
-      float s = kef(1 + i, 0);
+      V s = kef(1 + i, 0);
 #pragma unroll
-      for (int q = 0; q < i; ++q) s = fmaf(-L[i][q], u[q], s);
+      for (int q = 0; q < i; ++q) s = msub(s, L[i][q], u[q]);
       u[i] = s / L[i][i];
     }
-    float d = kef(0, 0);
+    V d = kef(0, 0);
 #pragma unroll
-    for (int j = 0; j < M; ++j) d = fmaf(-u[j], u[j], d);
+    for (int j = 0; j < M; ++j) d = msub(d, u[j], u[j]);
     d = d < d_floor ? d_floor : d;
-    float z[M];
+    V z[M];
 #pragma unroll
     for (int i = M - 1; i >= 0; --i) {
-      float s = u[i];
+      V s = u[i];
 #pragma unroll
-      for (int q = i + 1; q < M; ++q) s = fmaf(-L[q][i], z[q], s);
+      for (int q = i + 1; q < M; ++q) s = msub(s, L[q][i], z[q]);
       z[i] = s / L[i][i];
     }
-    const float inv_sqrt_d = 1.0f / sqrtf(d);
+    const V inv_sqrt_d = V(1) / root(d);
     out[0] = inv_sqrt_d;
 #pragma unroll
-    for (int j = 0; j < M; ++j) out[1 + j] = -z[j] * inv_sqrt_d * mv[1 + j];
+    for (int j = 0; j < M; ++j)
+      out[1 + j] = -z[j] * inv_sqrt_d * V(mv[1 + j]);
   }
 }
 
@@ -227,26 +276,27 @@ cudaError_t launch_rows(const float* K, const float* mask, float* rows,
   return cudaGetLastError();
 }
 
-// ---- the Matérn correlation (ops/covariance.py:_matern, ops/bessel.py) ----
+// ---- the Matérn correlation in float64 (ops/covariance.py:_matern,
+// ops/bessel.py, on float64 tensors) ----------------------------------------
 
 struct Matern {
-  float nu, mu, fact, gam1, gam2, gampl, gammi, lognorm, g;
+  double nu, mu, fact, gam1, gam2, gampl, gammi, lognorm, g;
   int l;
 };
 
-constexpr float kPi = (float)3.14159265358979323846;
-constexpr float kLn2 = (float)0.69314718055994530942;
+constexpr double kPi = 3.14159265358979323846;    // math.pi
+constexpr double kLn2 = 0.69314718055994530942;   // math.log(2.0)
 
 // ops/bessel.py _chebev: Clenshaw's d, dd = 2 x d - dd + c, d over the
-// coefficients N-1..1, then x d - dd + c0 / 2 (c0half, that product
-// rounded once, as Python computes it before torch adds it).
+// coefficients N-1..1, then x d - dd + c0 / 2 (c0half, that product as
+// Python computes it before torch adds it).
 template <int N>
-__device__ __forceinline__ float chebev(const float* c, float c0half,
-                                        float x) {
-  float d = 0.0f, dd = 0.0f;
+__device__ __forceinline__ double chebev(const double* c, double c0half,
+                                         double x) {
+  double d = 0.0, dd = 0.0;
 #pragma unroll
   for (int i = N - 1; i >= 1; --i) {
-    const float t = add(sub(mul(mul(x, 2.0f), d), dd), c[i]);
+    const double t = add(sub(mul(mul(x, 2.0), d), dd), c[i]);
     dd = d;
     d = t;
   }
@@ -254,19 +304,18 @@ __device__ __forceinline__ float chebev(const float* c, float c0half,
 }
 
 // ops/bessel.py _beschb: gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu), from
-// the Chebyshev coefficients _C1, _C2, each rounded to float as torch adds
-// a Python number to a float32 tensor.
-__device__ void beschb(float mu, float& gam1, float& gam2, float& gampl,
-                       float& gammi) {
-  const float c1[7] = {
+// the Chebyshev coefficients _C1, _C2 (Python's doubles).
+__device__ void beschb(double mu, double& gam1, double& gam2, double& gampl,
+                       double& gammi) {
+  const double c1[7] = {
       -1.142022680371168e0, 6.5165112670737e-3, 3.087090173086e-4,
       -3.4706269649e-6, 6.9437664e-9, 3.67795e-11, -1.356e-13};
-  const float c2[8] = {
+  const double c2[8] = {
       1.843740587300905e0, -7.68528408447867e-2, 1.2719271366546e-3,
       -4.9717367042e-6, -3.31261198e-8, 2.423096e-10, -1.702e-13, -1.49e-15};
-  const float xx = sub(mul(mul(mu, 8.0f), mu), 1.0f);
-  gam1 = chebev<7>(c1, (float)(0.5 * -1.142022680371168e0), xx);
-  gam2 = chebev<8>(c2, (float)(0.5 * 1.843740587300905e0), xx);
+  const double xx = sub(mul(mul(mu, 8.0), mu), 1.0);
+  gam1 = chebev<7>(c1, 0.5 * -1.142022680371168e0, xx);
+  gam2 = chebev<8>(c2, 0.5 * 1.843740587300905e0, xx);
   gampl = sub(gam2, mul(mu, gam1));
   gammi = add(gam2, mul(mu, gam1));
 }
@@ -274,104 +323,106 @@ __device__ void beschb(float mu, float& gam1, float& gam2, float& gampl,
 // The per-chain quantities at smoothness nu, in the twin's order:
 // ops/bessel.py kv's split nu = mu + l and _temme_small_x's fact,
 // ops/covariance.py _matern's lognorm and _matern_comp_small's g.
-__device__ void matern_chain(float nu, float* q) {
-  const float l = floorf(add(nu, 0.5f));
-  const float mu = sub(nu, l);
-  float gam1, gam2, gampl, gammi;
+__device__ void matern_chain(double nu, double* q) {
+  const double l = floor(add(nu, 0.5));
+  const double mu = sub(nu, l);
+  double gam1, gam2, gampl, gammi;
   beschb(mu, gam1, gam2, gampl, gammi);
-  const float pimu = mul(mu, kPi);
-  const float fact = fabsf(pimu) < 1e-12f ? 1.0f : dvd(pimu, sinf(pimu));
-  const float lognorm = sub(mul(sub(1.0f, nu), kLn2), lgammaf(nu));
-  const float mu2 = sub(1.0f, nu);
-  float u1, u2, gampl2, gammi2;
+  const double pimu = mul(mu, kPi);
+  const double fact = fabs(pimu) < 1e-12 ? 1.0 : dvd(pimu, sin(pimu));
+  const double lognorm = sub(mul(sub(1.0, nu), kLn2), lgamma(nu));
+  const double mu2 = sub(1.0, nu);
+  double u1, u2, gampl2, gammi2;
   beschb(mu2, u1, u2, gampl2, gammi2);
-  const float g = dvd(gammi2, mul(mul(mu2, sub(1.0f, mu2)), gampl2));
-  const float v[kMaternConsts] = {nu, mu, l, fact, gam1, gam2, gampl, gammi,
-                                  lognorm, g};
+  const double g = dvd(gammi2, mul(mul(mu2, sub(1.0, mu2)), gampl2));
+  const double v[kMaternConsts] = {nu, mu, l, fact, gam1, gam2, gampl, gammi,
+                                   lognorm, g};
 #pragma unroll
   for (int i = 0; i < kMaternConsts; ++i) q[i] = v[i];
 }
 
 // K_mu(x), K_{mu+1}(x) for x <= 2, Temme's series (ops/bessel.py
 // _temme_small_x, 20 terms).
-__device__ void temme_small_x(float x, const Matern& c, float& k0, float& k1) {
-  const float x2 = mul(0.5f, x);
-  const float dl = -logf(x2);
-  float e = mul(c.mu, dl);
-  const float fact2 = fabsf(e) < 1e-12f ? 1.0f : dvd(sinhf(e), e);
-  float ff = mul(c.fact,
-                 add(mul(c.gam1, coshf(e)), mul(mul(c.gam2, fact2), dl)));
-  float total = ff;
-  e = expf(e);
-  float p = dvd(mul(0.5f, e), c.gampl);
-  float q = mul(dvd(1.0f, mul(e, c.gammi)), 0.5f);
-  float cc = 1.0f;
-  const float d2 = mul(x2, x2);
-  float total1 = p;
-  const float mm = mul(c.mu, c.mu);
+__device__ void temme_small_x(double x, const Matern& c, double& k0,
+                              double& k1) {
+  const double x2 = mul(0.5, x);
+  const double dl = -log(x2);
+  double e = mul(c.mu, dl);
+  const double fact2 = fabs(e) < 1e-12 ? 1.0 : dvd(sinh(e), e);
+  double ff = mul(c.fact,
+                  add(mul(c.gam1, cosh(e)), mul(mul(c.gam2, fact2), dl)));
+  double total = ff;
+  e = exp(e);
+  double p = dvd(mul(0.5, e), c.gampl);
+  double q = mul(dvd(1.0, mul(e, c.gammi)), 0.5);
+  double cc = 1.0;
+  const double d2 = mul(x2, x2);
+  double total1 = p;
+  const double mm = mul(c.mu, c.mu);
   for (int i = 1; i <= 20; ++i) {
-    const float fi = (float)i;
+    const double fi = (double)i;
     ff = dvd(add(add(mul(fi, ff), p), q), sub(fi * fi, mm));
-    cc = mul(mul(cc, d2), 1.0f / fi);
+    cc = mul(mul(cc, d2), dvd(1.0, fi));
     p = dvd(p, sub(fi, c.mu));
     q = dvd(q, add(c.mu, fi));
     total = add(total, mul(cc, ff));
     total1 = add(total1, mul(cc, sub(p, mul(fi, ff))));
   }
   k0 = total;
-  k1 = mul(total1, mul(dvd(1.0f, x), 2.0f));
+  k1 = mul(total1, mul(dvd(1.0, x), 2.0));
 }
 
 // K_mu(x), K_{mu+1}(x) for x > 2, Steed's CF2 (ops/bessel.py _cf2_large_x,
 // at most 40 steps, renormalized every step, frozen once the series
-// increment is negligible).
-__device__ void cf2_large_x(float x, const Matern& c, float& k0, float& k1) {
-  float b = mul(add(x, 1.0f), 2.0f);
-  float d = dvd(1.0f, b);
-  float h = d, delh = d;
-  float q1 = 0.0f, q2 = 1.0f;
-  const float a1 = sub(0.25f, mul(c.mu, c.mu));
-  float q = a1, cc = a1, a = -a1;
-  float s = add(mul(q, delh), 1.0f);
+// increment is below 1e-10 of the sum, the float64 twin's eps).
+__device__ void cf2_large_x(double x, const Matern& c, double& k0,
+                            double& k1) {
+  double b = mul(add(x, 1.0), 2.0);
+  double d = dvd(1.0, b);
+  double h = d, delh = d;
+  double q1 = 0.0, q2 = 1.0;
+  const double a1 = sub(0.25, mul(c.mu, c.mu));
+  double q = a1, cc = a1, a = -a1;
+  double s = add(mul(q, delh), 1.0);
   for (int i = 2; i < 42; ++i) {
-    a = sub(a, 2.0f * (float)(i - 1));
-    cc = mul(mul(-a, cc), 1.0f / (float)i);
-    const float qnew = dvd(sub(q1, mul(b, q2)), a);
+    a = sub(a, 2.0 * (double)(i - 1));
+    cc = mul(mul(-a, cc), dvd(1.0, (double)i));
+    const double qnew = dvd(sub(q1, mul(b, q2)), a);
     q1 = q2;
     q2 = qnew;
     q = add(q, mul(cc, qnew));
-    const float r = fmaxf(fabsf(cc), 1e-30f);
+    const double r = fmax(fabs(cc), 1e-30);
     cc = dvd(cc, r);
     q1 = mul(q1, r);
     q2 = mul(q2, r);
-    b = add(b, 2.0f);
-    float denom = add(b, mul(a, d));
-    denom = fabsf(denom) < 1e-30f ? 1e-30f : denom;
-    d = dvd(1.0f, denom);
-    const float delh_new = mul(sub(mul(b, d), 1.0f), delh);
-    const float dels = mul(q, delh_new);
+    b = add(b, 2.0);
+    double denom = add(b, mul(a, d));
+    denom = fabs(denom) < 1e-30 ? 1e-30 : denom;
+    d = dvd(1.0, denom);
+    const double delh_new = mul(sub(mul(b, d), 1.0), delh);
+    const double dels = mul(q, delh_new);
     delh = delh_new;
     h = add(h, delh_new);
-    const float s_new = add(s, dels);
+    const double s_new = add(s, dels);
     s = s_new;
-    if (fabsf(dels) < mul(1e-8f, fabsf(s_new))) break;
+    if (fabs(dels) < mul(fabs(s_new), 1e-10)) break;
   }
   h = mul(a1, h);
-  const float kmu =
-      dvd(mul(sqrtf(mul(dvd(1.0f, mul(x, 2.0f)), kPi)), expf(-x)), s);
+  const double kmu =
+      dvd(mul(__dsqrt_rn(mul(dvd(1.0, mul(x, 2.0)), kPi)), exp(-x)), s);
   k0 = kmu;
-  k1 = dvd(mul(kmu, sub(add(add(c.mu, x), 0.5f), h)), x);
+  k1 = dvd(mul(kmu, sub(add(add(c.mu, x), 0.5), h)), x);
 }
 
 // 1 - C(x) for x <= 0.29, the ascending series (ops/covariance.py
 // _matern_comp_small).
-__device__ float matern_comp_small(float x, const Matern& c) {
-  const float q = mul(mul(0.25f, x), x);
-  float t2 = 1.0f, S2 = 1.0f;
-  float t1 = dvd(q, sub(1.0f, c.nu));
-  float S1 = t1;
+__device__ double matern_comp_small(double x, const Matern& c) {
+  const double q = mul(mul(0.25, x), x);
+  double t2 = 1.0, S2 = 1.0;
+  double t1 = dvd(q, sub(1.0, c.nu));
+  double S1 = t1;
   for (int k = 1; k < 6; ++k) {
-    const float fk = (float)k;
+    const double fk = (double)k;
     t2 = dvd(mul(t2, q), mul(add(c.nu, fk), fk));
     S2 = add(S2, t2);
     if (k >= 2) {
@@ -379,32 +430,45 @@ __device__ float matern_comp_small(float x, const Matern& c) {
       S1 = add(S1, t1);
     }
   }
-  const float xh = fmaxf(mul(0.5f, x), 1e-30f);
-  return sub(mul(mul(c.g, expf(mul(mul(c.nu, 2.0f), logf(xh)))), S2), S1);
+  const double xh = fmax(mul(0.5, x), 1e-30);
+  return sub(mul(mul(c.g, exp(mul(mul(c.nu, 2.0), log(xh)))), S2), S1);
 }
 
 // The Matérn correlation at scaled distance d (ops/covariance.py:_matern);
 // out of line, so the unrolled row body calls it.
-__device__ __noinline__ float matern_corr(float d, Matern c) {
-  if (d <= 1e-8f) return 1.0f;
-  const float x = fmaxf(d, 1e-8f);
-  if (x <= 0.29f) return sub(1.0f, matern_comp_small(x, c));
-  float k0, k1;
-  if (x <= 2.0f) {
-    temme_small_x(fmaxf(x, 1e-30f), c, k0, k1);
+__device__ __noinline__ double matern_corr(double d, Matern c) {
+  if (d <= 1e-8) return 1.0;
+  const double x = fmax(d, 1e-8);
+  if (x <= 0.29) return sub(1.0, matern_comp_small(x, c));
+  double k0, k1;
+  if (x <= 2.0) {
+    temme_small_x(fmax(x, 1e-30), c, k0, k1);
   } else {
     cf2_large_x(x, c, k0, k1);
   }
   // upward recurrence K_{j+1} = K_{j-1} + 2 (mu + j) / x K_j up to l
   for (int j = 1; j <= c.l; ++j) {
-    const float k2 = add(k0, mul(dvd(mul(add(c.mu, (float)j), 2.0f), x), k1));
+    const double k2 =
+        add(k0, mul(dvd(mul(add(c.mu, (double)j), 2.0), x), k1));
     k0 = k1;
     k1 = k2;
   }
-  return mul(expf(add(c.lognorm, mul(c.nu, logf(x)))), k0);
+  return mul(exp(add(c.lognorm, mul(c.nu, log(x)))), k0);
 }
 
 // ---- factor_build: K never written ------------------------------------------
+
+// Offset, in floats, of the per-chain constants after the T rows' slab
+// and rows out: rounded up to 8 bytes for the Matérn instantiation's
+// doubles.
+__host__ __device__ inline int consts_offset(int T, int pad, int ko) {
+  return (T * (pad + ko) + 1) & ~1;
+}
+
+// Matérn's values are double (each row rounded once to float on its way
+// out), the exponential families' float.
+template <bool kMatern>
+using BuildValue = std::conditional_t<kMatern, double, float>;
 
 template <int M, bool kMatern>
 __global__ void __launch_bounds__(128)
@@ -413,13 +477,15 @@ factor_build_kernel(const float* __restrict__ d2g,
                     const float* __restrict__ natural,
                     const long long* __restrict__ rows,
                     float* __restrict__ out, int C, int R, int G, int n_shape,
-                    int chains_per_block, float d_floor) {
+                    int chains_per_block, BuildValue<kMatern> d_floor) {
+  using V = BuildValue<kMatern>;
   constexpr int k = M + 1, ko = k | 1;
   const int kkG = k * k * G, pad = kkG | 1, T = blockDim.x;
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   float* sD = smem;                    // [T][pad]  the rows' nn_dist2
   float* sO = sD + T * pad;            // [T][ko]   one chain's rows out
-  float* sC = sO + T * ko;             // [G + kMaternConsts] the chain's
+  // [G + kMaternConsts] the chain's squared ranges and Matérn quantities
+  V* sC = reinterpret_cast<V*>(smem + consts_offset(T, pad, ko));
 
   const long long b0 = (long long)blockIdx.x * T;
   const int nb = (int)(R - b0 < T ? R - b0 : T);
@@ -441,37 +507,39 @@ factor_build_kernel(const float* __restrict__ d2g,
   const int c1 = c0 + chains_per_block < C ? c0 + chains_per_block : C;
   for (int c = c0; c < c1; ++c) {
     if (t < G) {
-      const float r = natural[(long long)c * n_shape + t];
+      const V r = natural[(long long)c * n_shape + t];
       sC[t] = mul(r, r);
-    } else if (kMatern && t == G) {
-      matern_chain(natural[(long long)c * n_shape + G], sC + G);
+    }
+    if constexpr (kMatern) {
+      if (t == G) matern_chain(natural[(long long)c * n_shape + G], sC + G);
     }
     __syncthreads();   // the slab (first chain) and the chain's constants
-    float res[k];
+    V res[k];
     if (t < nb) {
       Matern mc{};
       if constexpr (kMatern) {
-        const float* q = sC + G;
+        const double* q = sC + G;
         mc = Matern{q[0], q[1], q[3], q[4], q[5], q[6], q[7], q[8], q[9],
                     (int)q[2]};
       }
-      auto kef = [&](int i, int j) -> float {
-        if (i == j) return 1.0f;
+      auto kef = [&](int i, int j) -> V {
+        if (i == j) return V(1);
         const float v = mv[i] * mv[j];
-        if (v == 0.0f) return 0.0f;
+        if (v == 0.0f) return V(0);
         const float* p = Dt + (i * k + j) * G;
-        float d2 = dvd(p[0], sC[0]);
-        for (int g = 1; g < G; ++g) d2 = add(d2, dvd(p[g], sC[g]));
-        const float d = sqrtf(fmaxf(d2, 0.0f));
+        V d2 = dvd(V(p[0]), sC[0]);
+        for (int g = 1; g < G; ++g) d2 = add(d2, dvd(V(p[g]), sC[g]));
         if constexpr (kMatern) {
-          return mul(matern_corr(d, mc), v);
+          const double d = __dsqrt_rn(fmax(d2, 0.0));
+          return mul(matern_corr(d, mc), (double)v);
         } else {
+          const float d = sqrtf(fmaxf(d2, 0.0f));
           return mul(expf(-d), v);
         }
       };
       factor_row<M>(kef, mv, d_floor, res);
 #pragma unroll
-      for (int j = 0; j < k; ++j) sO[t * ko + j] = res[j];
+      for (int j = 0; j < k; ++j) sO[t * ko + j] = (float)res[j];
     }
     __syncthreads();
     float* dst = out + ((long long)c * R + b0) * k;
@@ -487,11 +555,16 @@ template <int M>
 cudaError_t launch_build(bool matern, const float* d2g, const float* mask,
                          const float* natural, const long long* rows,
                          float* out, int C, int R, int G, int n_shape,
-                         float d_floor, cudaStream_t st) {
+                         double d_floor, cudaStream_t st) {
   constexpr int k = M + 1, ko = k | 1;
-  const long long pad = ((long long)k * k * G) | 1;
+  // a slab too large for one block even at 32 threads: refused, before
+  // the int offsets below could overflow
+  if (((long long)k * k * G) * 32 * sizeof(float) > 227 * 1024)
+    return cudaErrorInvalidValue;
+  const int pad = (k * k * G) | 1;
   auto smem = [&](int T) {
-    return (size_t)(T * (pad + ko) + G + kMaternConsts) * sizeof(float);
+    return (size_t)consts_offset(T, pad, ko) * sizeof(float) +
+           (size_t)(G + kMaternConsts) * sizeof(double);
   };
   int T = 128;
   while (T > 32 && smem(T) > 48 * 1024) T /= 2;
@@ -554,11 +627,13 @@ extern "C" int factor_rows_launch(const float* K, const float* mask,
 #if FACTOR_PART & 6
 // out [C, R, m+1] from nn_dist2 [n, m+1, m+1, G], nn_mask [n, m+1] and
 // natural [C, n_shape] (the G ranges, then nu when matern != 0); row r of
-// the output is graph row rows[r], or r when rows is null.
+// the output is graph row rows[r], or r when rows is null.  d_floor is a
+// double: the Matérn rows floor d at it in float64, the exponential ones
+// at its float.
 extern "C" int factor_build_launch(const float* d2g, const float* mask,
                                    const float* natural, const long long* rows,
                                    float* out, int C, int R, int m, int G,
-                                   int n_shape, int matern, float d_floor,
+                                   int n_shape, int matern, double d_floor,
                                    void* stream) {
   if (m < 0 || m > kMaxM || C <= 0 || R <= 0 || G <= 0 ||
       n_shape < G + (matern ? 1 : 0))

@@ -18,7 +18,12 @@ nu = 0.75, and at a proposal 1.02 x range, nu 0.7525:
      ``factor_build`` launch on a card, K never written) against the
      float64 factor of the float64 K;
   3. the proposal's log-det difference sum_i dlog d_i, device against
-     float64, and where its error lives (rows by conditional variance).
+     float64, and where its error lives (rows by conditional variance);
+     the port's record adds the same error against the float64 factors
+     at the float32-rounded (range, nu) the device takes
+     (``proposal_logdet_diff_err_f32_params``): with the rows built in
+     float64, the rounding of the parameters themselves decides the
+     headline figure.
 
 No fast-math anywhere: the device uses the libm/CUDA transcendentals.
 """
@@ -77,6 +82,10 @@ def probe_family(covfun, graph, NN, label, out, device="cuda") -> dict:
     dld_dev = np.log(linv_dev_p[:, 0]) - np.log(linv_dev[:, 0])
     ld_p64, _ = f64_linv_logdiag(K_f64_p, mask)
     dld_f64 = ld_p64 - ld_oracle_f64K
+    # the float64 factors at the float32-rounded parameters
+    ld32 = [f64_linv_logdiag(f64_matern_from_d2g(d2g, nt[:G], nt[G]), mask)[0]
+            for nt in (np.float32(natural).astype(np.float64),
+                       np.float32(natural_p).astype(np.float64))]
     row_err = dld_dev - dld_f64
     conc = {}
     for thr in (1e-3, 1e-4, 1e-5):
@@ -102,6 +111,8 @@ def probe_family(covfun, graph, NN, label, out, device="cuda") -> dict:
                               "sum": float(e_total.sum())},
         "proposal_logdet_diff_err": float(dld_dev.sum() - dld_f64.sum()),
         "proposal_logdet_diff_f64": float(dld_f64.sum()),
+        "proposal_logdet_diff_err_f32_params": float(
+            dld_dev.sum() - (ld32[1] - ld32[0]).sum()),
         "ratio_err_concentration": conc,
     }
     out[label] = entry

@@ -2,7 +2,8 @@
 Gibbs iteration profiled by block, on one CUDA card.
 
     python -m nngp_tpu_torch.experiments.sweep_bench [--chains 3 96]
-        [--family F] [--profile [CHAINS:K ...]] [--json PATH]
+        [--family F] [--profile [CHAINS:K ...]] [--factor [CHAINS ...]]
+        [--json PATH]
 
 The problem is chip_smoke.py's main path: 64,274 synthetic lon/lat sites
 (``utils/datasets.py``), ``exponential_sphere``, m = 5, 14 location
@@ -20,6 +21,11 @@ could take for the function's bytes and operations (``sweep_bound``).
               for the device time, the launches and the card's idle share
   --family    the covariance family of the fit (default exponential_sphere;
               matern_sphere for the Matérn iteration)
+  --factor    the factor build alone (ops/vecchia.py:vecchia_linv, one
+              factor_build launch) at the fit's states tiled to each
+              CHAINS (default 3): its median time over 21 calls and a
+              SHA-256 of its rows' bytes, so that two checkouts run under
+              this script in one call can be compared bit for bit
 
 Raises without a CUDA card.
 """
@@ -171,6 +177,25 @@ def _iterations(mc, T, carry=None, seed=0, chains=None, steps=1):
     return carry
 
 
+def time_factor(mc, C):
+    """The factor build at ``mc``'s states tiled to C chains: median ms of
+    21 calls (CUDA events) and the SHA-256 of the rows' bytes."""
+    import hashlib
+
+    from nngp_tpu_torch.ops.covariance import shape_transform
+    from nngp_tpu_torch.ops.vecchia import vecchia_linv
+
+    names = mc.space_time_model["covfun"]["shape_params"]
+    natural = shape_transform(names, tile_states(mc.states, C).shape)
+    rows = vecchia_linv(mc.graph, natural)
+    torch.cuda.synchronize()
+    digest = hashlib.sha256(rows.cpu().numpy().tobytes()).hexdigest()
+    return {"family": mc.graph.covfun, "factor_build_chains": C,
+            "ms": timing.median_ms(lambda: vecchia_linv(mc.graph, natural),
+                                   21),
+            "rows_sha256": digest[:16]}
+
+
 def profile_iteration(mc, T=5, chains=None, steps=1):
     """Per block of models/gaussian.py: device span (CUDA events) and host
     time, ms per iteration over T iterations of ``mc``'s states tiled to
@@ -245,6 +270,8 @@ def main(argv=None):
     ap.add_argument("--profile", nargs="*", metavar="CHAINS:K",
                     help="profile one iteration at each CHAINS:K (default "
                          "3:1)")
+    ap.add_argument("--factor", type=int, nargs="*", metavar="CHAINS",
+                    help="time the factor build at each CHAINS (default 3)")
     ap.add_argument("--json", default=None, help="append the lines here")
     a = ap.parse_args(argv)
     dev = timing.cuda_device()
@@ -265,6 +292,8 @@ def main(argv=None):
         lines.append(time_case(case, plain=(C <= 3)))
         del case
         torch.cuda.empty_cache()
+    for C in ([] if a.factor is None else a.factor or [3]):
+        lines.append(time_factor(mc, C))
     for spec in ([] if a.profile is None else a.profile or ["3:1"]):
         chains, steps = (int(v) for v in spec.split(":"))
         lines.append(profile_iteration(mc, chains=chains, steps=steps))

@@ -12,7 +12,10 @@ the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
   (chain, row), each correlation computed where the Cholesky uses it, so K
   is never written); on the CPU its plain twin ``vecchia_linv_reference``
   (``correlation_from_sqdist``, then ``linv_rows_reference``: the
-  subtractions in float64, where float32 products are exact).
+  subtractions in float64, where float32 products are exact).  The
+  Matérn families build each row wholly in float64 (distances, K_nu,
+  Cholesky and solves) and round it once to float32; the exponential
+  families stay in float32.
 - ``linv_rows_from_K``: the factor rows from a given K (the audits' same-K
   comparisons): on a card the kernel's K-input entry ``factor_rows``.
 - ``linv_mult`` / ``linv_t_mult``: L x by gather, L' z by a sum onto the
@@ -159,7 +162,7 @@ def _factor_library(part: str, m: int):
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     if part:
         lib.factor_build_launch.argtypes = [p, p, p, p, p, i, i, i, i, i, i,
-                                            f, p]
+                                            ctypes.c_double, p]
         lib.factor_build_launch.restype = i
     else:
         lib.factor_rows_launch.argtypes = [p, p, p, ctypes.c_longlong, i, i,
@@ -233,7 +236,18 @@ def vecchia_linv_reference(covfun: str, nn_dist2: torch.Tensor,
     """Plain PyTorch version of the ``factor_build`` kernel: the
     correlations K [C, R, k, k] (``correlation_from_sqdist``) of the rows'
     squared distances nn_dist2 [R, k, k, G], then ``linv_rows_reference``
-    with the rows' mask nn_mask [R, k]."""
+    with the rows' mask nn_mask [R, k].
+
+    The Matérn families on float32 inputs run in float64 from the widened
+    (exact) distances and shape params through K, the Cholesky and the
+    solves, and round each row once to float32: near singular, an ulp of
+    a float32 K amplified by 1/d decides the rows' error, so K must not
+    be rounded to float32 before the Cholesky.  The exponential families,
+    and float64 inputs, run in their own dtype."""
+    if covfun.startswith("matern") and natural.dtype == torch.float32:
+        K = correlation_from_sqdist(covfun, nn_dist2.double(),
+                                    natural.double())
+        return linv_rows_reference(K, nn_mask.double(), d_floor).float()
     K = correlation_from_sqdist(covfun, nn_dist2, natural)
     return linv_rows_reference(K, nn_mask, d_floor)
 
@@ -314,9 +328,10 @@ def vecchia_linv(graph, natural_shape: torch.Tensor,
       linv[i, 1:j] = -b_ij / sqrt(d_i)
     where b = Knn^-1 Kni and d = 1 - Kni' b.  Padded parent slots produce
     exact zeros.  The correlations come from the host-f64 ``nn_dist2``, so
-    no coordinate cancellation enters the factor.  float32 on a card is one
-    ``factor_build`` launch (``vecchia_linv.launches`` counts them); the
-    CPU, and float64 anywhere, run ``vecchia_linv_reference``."""
+    no coordinate cancellation enters the factor; the Matérn families
+    build each float32 row in float64 and round it once.  float32 on a
+    card is one ``factor_build`` launch (``vecchia_linv.launches`` counts
+    them); the CPU, and float64 anywhere, run ``vecchia_linv_reference``."""
     if natural_shape.device.type == "cuda" and (
             natural_shape.dtype == graph.nn_dist2.dtype == torch.float32):
         return factor_build_cuda(graph, natural_shape.contiguous(), rows)

@@ -13,11 +13,16 @@ and tests/test_torch_factor_rows.py):
   conditional variance falls and amplifies an ulp of K, both builds
   against the float64 oracle (tests/test_torch_matern.py's bounds): the
   port's largest row error within 1.5x jitted nngp_tpu's + 1e-6, its
-  log-determinant within 1e-3.  matern_sphere and matern_scaledim miss
-  those bounds (ROADMAP.md, Queue 3) and are marked so, strictly, until
-  that is repaired; at that geometry the port's correlations themselves
-  are held to nngp_tpu's against the float64 ones: the largest and the
-  mean error of K within 1.5x jitted nngp_tpu's.
+  log-determinant within 1e-3; at that geometry the port's float32
+  correlations themselves are held to nngp_tpu's against the float64
+  ones: the largest and the mean error of K within 1.5x jitted
+  nngp_tpu's;
+- the Matérn build, which runs in float64 from the widened float32
+  inputs through K, the Cholesky and the solves and rounds each row once:
+  bit for bit that composition, and near singular, for both chains, its
+  largest row error within 0.1x jitted nngp_tpu's + 1e-6 and its
+  log-determinant within 1e-5 of the float64 oracle's (observed: at
+  least 4x margin on the rows, at most 6.2e-7 on the log-determinant).
 
 The card's kernel against this twin is tests/test_torch_cuda.py's
 (marker gpu).
@@ -71,16 +76,7 @@ def test_reference_matches_jitted_nngp_tpu(family):
     assert torch.equal(tvec.vecchia_linv(g, natural), got)
 
 
-NEAR_SINGULAR_FAULT = pytest.mark.xfail(
-    strict=True, reason="ROADMAP.md Queue 3: at nu 0.98 the port's row "
-    "error is 2.2x nngp_tpu's (matern_sphere) and its log-determinant "
-    "error 1.3e-3 (matern_scaledim; nngp_tpu's 1.4e-3)")
-
-
-@pytest.mark.parametrize("family", [
-    pytest.param(f, marks=NEAR_SINGULAR_FAULT)
-    if f in ("matern_sphere", "matern_scaledim") else f
-    for f in tcov.COVFUN_FAMILIES])
+@pytest.mark.parametrize("family", tcov.COVFUN_FAMILIES)
 def test_reference_near_singular(family):
     mc, g, _ = _port(family)
     natural = _natural(mc)
@@ -97,12 +93,42 @@ def test_reference_near_singular(family):
 
 
 @pytest.mark.parametrize("family", tcov.COVFUN_FAMILIES[4:])
+def test_matern_build_float64_inside(family):
+    """The Matérn twin widens the float32 distances and shape params and
+    builds each row in float64 (K, Cholesky, solves), rounding it once:
+    bit for bit that composition at the initial states and near singular,
+    where, for both chains, its largest row error against the float64
+    oracle is within 0.1x jitted nngp_tpu's + 1e-6 and its
+    log-determinant within 1e-5."""
+    mc, g, initial = _port(family)
+    near = _natural(mc)
+    for natural in (initial, near):
+        got = _twin(g, natural)
+        K = tcov.correlation_from_sqdist(family, g.nn_dist2.double(),
+                                         natural.double())
+        want = tvec.linv_rows_reference(K, g.nn_mask.double(),
+                                        g.d_floor).float()
+        assert got.dtype == torch.float32
+        assert torch.equal(got, want)
+    got, jitted = _twin(g, near).numpy(), _jitted(mc, near)
+    coords = lonlat_to_xyz(mc.locs) if "sphere" in family else mc.locs
+    for c, nat in enumerate(near.numpy().astype(np.float64)):
+        oracle = np_vecchia_linv(coords, mc.NNarray, family, nat)
+        err_t = np.abs(got[c] - oracle).max()
+        err_j = np.abs(jitted[c] - oracle).max()
+        assert err_t <= 0.1 * err_j + 1e-6, (c, err_t, err_j)
+        logdet_err = (np.log(got[c][:, 0].astype(np.float64)).sum()
+                      - np.log(oracle[:, 0]).sum())
+        assert abs(logdet_err) <= 1e-5, (c, logdet_err)
+
+
+@pytest.mark.parametrize("family", tcov.COVFUN_FAMILIES[4:])
 def test_matern_correlation_near_singular(family):
-    """At the near-singular geometry the port's Matérn correlations are at
-    least as close to the float64 ones as jitted nngp_tpu's: where the
-    rows miss their bounds (test_reference_near_singular) it is the
-    amplification of an ulp of K by the conditional variance, not a less
-    accurate K."""
+    """At the near-singular geometry the port's float32 Matérn
+    correlations are at least as close to the float64 ones as jitted
+    nngp_tpu's.  Rounded to float32, such a K still decides the rows'
+    error there (an ulp amplified by the conditional variance), which is
+    why the build keeps K in float64 (test_matern_build_float64_inside)."""
     from nngp_tpu.ops.covariance import correlation_from_sqdist as jax_corr
     from nngp_tpu_torch.ops.numpy_ref import np_correlation
 
