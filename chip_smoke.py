@@ -7,7 +7,7 @@ Phases, each printed with its result and time; any failure ends the run
 with a nonzero exit and no "ok" line:
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc builds the four CUDA sources of csrc/ (factor_rows.cu
+  2. build        nvcc builds the five CUDA sources of csrc/ (factor_rows.cu
                   as its three parts at the main path's m = 5; other m
                   are built on first use), one nvcc each, all at once
   3. small parity 3 Gibbs iterations of a 400-site problem on the card
@@ -24,7 +24,17 @@ with a nonzero exit and no "ok" line:
                   its grid barriers alone and (3 chains) of the plain
                   version, beside the byte bound
                   (nngp_tpu_torch/experiments/sweep_bench.py)
-  6. gather probes the four kernels of the gather microbenchmarks
+  6. draws        the chain_draws kernel (csrc/chain_draws.cu) at the main
+                  path's layout, 3 and 96 chains: every field bit for bit
+                  with its plain twin run on the card and with a repeat
+                  call; against the twin on the CPU the Philox words and
+                  the uniforms bit for bit, at most 1e-6 of the normals
+                  differing and each by at most one float32 ulp (the
+                  card's float64 libm against the CPU's); median times of
+                  the kernel, the twin and torch.randn + torch.rand of the
+                  same shapes beside the bound (bytes written, float64
+                  operations)
+  7. gather probes the four kernels of the gather microbenchmarks
                   (nngp_tpu_torch/experiments: X1 gather_bench, X2
                   gather_probe, X3 gather_probe2) at the scripts' full
                   shapes, each against its plain PyTorch twin: the DSMEM
@@ -41,18 +51,18 @@ with a nonzero exit and no "ok" line:
                   (torch.gather/roll per stage, Tensor.scatter_, cuBLAS
                   FP32); then the three entry points, with each kernel's
                   launch count from that run
-  7. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
+  8. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
                   estimate, with the kernel's launch count from that run
                   only; then 25 more iterations to time a warm cycle
-  8. predict      predict_field at 2,000 new sites in the data's lon/lat
+  9. predict      predict_field at 2,000 new sites in the data's lon/lat
                   box (m = 10) and predict_fixed_effects on 14 covariate
                   columns, finite and of the right shapes; then the
                   conditional draws card against CPU on a 400-site fit,
                   same retained samples and normals, tolerance 1e-3 *
                   max(1, |w|_inf)
-  9. save/load    save the fit, load it on the card (states and records bit
+ 10. save/load    save the fit, load it on the card (states and records bit
                   for bit) and resume it for 25 iterations
- 10. examples     the six scripts of nngp_tpu_torch/examples/ through their
+ 11. examples     the six scripts of nngp_tpu_torch/examples/ through their
                   main() on the card: heavy_metals at full width (3 chains,
                   1 cycle x 25 iterations, saved), heavy_metals_analysis on
                   that fit (predict_field on the 0.25 deg US grid, no
@@ -61,11 +71,11 @@ with a nonzero exit and no "ok" line:
                   --quick; for each the sweep kernel's launches counted
                   from zero (one an iteration it ran), a finite summary,
                   seconds and ms per iteration
- 11. matern       initialize with matern_sphere at full width; the factor
+ 12. matern       initialize with matern_sphere at full width; the factor
                   build's proposal log-det difference at the Matérn probe's
                   (range, nu) against the float64 oracle (tolerance 1e-2),
                   then run 25 iterations and estimate the smoothness
- 12. factor rows  both entries of csrc/factor_rows.cu at the main path's
+ 13. factor rows  both entries of csrc/factor_rows.cu at the main path's
                   shapes (the Heavy-metals graph's states tiled to 3 and 96
                   chains, matern_sphere's at 3).  The K-input entry
                   factor_rows against its plain twin on the same K: max
@@ -90,31 +100,36 @@ with a nonzero exit and no "ok" line:
                   singular (300 sites, ranges at 2.5 median neighbour
                   distances, nu 0.54 and 0.98): log-determinant within
                   1e-5 of the float64 oracle, rows within 1e-4 of the twin
- 13. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
+ 14. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
                   experiments by python -m, all at once, at cut sizes:
                   grb_guard, hm_mpsrf on the main path's fit, hm_crossval
                   (400 sites, 1 engine cycle of 40, 60 oracle
                   iterations), am_ab's three arms (8k sites, 2 x 10),
                   halo_overhead_table (20,000 sites, 8 ranks): records
                   finite, every sampler run launching both kernels
- 14. determinism  the main path twice from seed 1 (initialize -> run, 10
+ 15. determinism  the main path twice from seed 1 (initialize -> run, 10
                   iterations, 3 chains, full width): states and records bit
                   for bit, the count of differing elements 0
- 15. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
+ 16. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
                   2 iterations x 2 chains of the 96-site toy, records finite
- 16. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
+ 17. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
                   K = 1) saved and loaded twice, then run for 25 iterations
                   with run(mc, mesh=...) and with run(mc): the count of
                   differing state and record elements 0; collective_grb over
                   NCCL against the host Gelman_Rubin_Brooks, rtol 1e-10
- 17. two ranks    a 6-chain fit at full width saved once; then
+ 18. two ranks    a 6-chain fit at full width saved once; then
                   python -m nngp_tpu_torch.parallel.resume on it for 25
                   iterations as 1 process (6 chains) and twice as 2 gloo
                   ranks sharing the card (3 chains each): the ranks hold the
                   same R-hat and fit digest, both 2-rank launches the same
                   digest, every rank one sweep-kernel launch an iteration;
-                  ms per iteration of each
- 18. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
+                  ms per iteration of each; the 2 x 3 fit's records of the
+                  first 5 iterations held to the 1 x 6 fit's (log_scale
+                  rtol 1e-5, field rtol = atol = 1e-4, the tolerances of
+                  tests/test_parallel.py::test_sharded_cycle_matches_vmap:
+                  each chain draws from its own key), and the count of
+                  state elements that differ after 25 iterations
+ 19. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
                   on the main path's fit: every colour step of both D = 2
                   owned sub-plans on the fit's sweep inputs, bit for bit
                   with one launch of the whole plan and within TOL_REL of
@@ -129,7 +144,7 @@ with a nonzero exit and no "ok" line:
                   each rank's ms per iteration, exchanges and bytes per
                   iteration and the plan's overlap; then the plan at scale
                   (host only): 100,000 sites over 8 ranks, overlap < 10 %
- 19. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+ 20. bench        the bench's path (nngp_tpu_torch/bench.py) through its
                   functions at full width with short fixed windows: the
                   sweep kernel's parity preflight, the 96-chain leg (K = 3,
                   lean records, 100 warmup + 100 timed iterations), the
@@ -137,7 +152,7 @@ with a nonzero exit and no "ok" line:
                   iterations); its JSON line checked as
                   tests/test_bench_smoke.py checks bench.py's, and ESS/s,
                   ms/iteration and the baseline's it/s printed
- 20. audits       the numeric audits of nngp_tpu_torch/experiments at the
+ 21. audits       the numeric audits of nngp_tpu_torch/experiments at the
                   synthetic Heavy-metals width (ratio_audit at 8
                   proposals, factor_probe, cotransform_probe, op_probe,
                   matern_probe's two layouts): each headline figure (the
@@ -149,7 +164,7 @@ with a nonzero exit and no "ok" line:
                   errors against the float64 Cholesky of the same K
                   (factor_probe's two states, matern_probe's two layouts)
                   at most 1.5 x the jitted JAX script's
- 21. bigN         nngp_tpu_torch/experiments/bigN.py at 150,000 uniform
+ 22. bigN         nngp_tpu_torch/experiments/bigN.py at 150,000 uniform
                   sites (its 500,000 are cut to fit the time limit),
                   middle-out ordering, exponential_isotropic, 3
                   chains: initialize by host stage, one warm and two timed
@@ -163,8 +178,8 @@ with a nonzero exit and no "ok" line:
                   share; experiments/sweep_bench.py)
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
-counts the sweep kernel's launches from zero and needs exactly one per
-iteration; halo mode needs one per colour step that has a site of the
+counts the sweep kernel's and chain_draws' launches from zero and needs
+exactly one of each per iteration (halo mode's sweep launches below); halo mode needs one per colour step that has a site of the
 rank; the bench phase needs one per iteration of its legs plus the
 preflight's one.  Every run also counts the fused factor build from zero
 and needs one launch for the cycle's factor and two an ASIS pair, and no
@@ -176,6 +191,7 @@ The line before last is the kernels' JSON; the last line is
 
 import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -217,6 +233,16 @@ NEAR_SINGULAR_LOGDET = 1e-5
 # this times the jitted JAX script's figure on the CPU
 FACTOR_LOGDIAG = 1.5
 N_PREDICT = 2000
+# two ranks against one: the iterations whose records are held to
+# tests/test_parallel.py::test_sharded_cycle_matches_vmap's tolerances
+FIRST_ITERS = 5
+# the chain_draws kernel's checks and times: chains [0, C), and the key of
+# iteration 7 of the cycle that starts at 25, seed 1
+DRAW_CHAINS = (3, 96)
+DRAW_KEY = (1, 25, 7)
+# normals, card against the CPU twin: at most this share may differ (the
+# card's float64 libm against the CPU's), each by at most one float32 ulp
+DRAW_DIFF_SHARE, DRAW_ULPS = 1e-6, 1
 # audits: each headline figure <= max(AUDIT_FACTOR x the JAX script's figure
 # on the CPU on the same synthetic geometry, AUDIT_FLOOR)
 AUDIT_FACTOR, AUDIT_FLOOR = 3.0, 1e-3
@@ -241,6 +267,7 @@ def small_parity(dev, family="exponential_sphere"):
     import nngp_tpu_torch
     from nngp_tpu_torch.models import gaussian as G
     from nngp_tpu_torch.ops.covariance import shape_transform
+    from nngp_tpu_torch.ops.draws import DrawKey
     from nngp_tpu_torch.ops.vecchia import vecchia_linv
     from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
 
@@ -254,14 +281,14 @@ def small_parity(dev, family="exponential_sphere"):
             n_iterations=3,
             shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
             locs_cols=tuple(int(c) for c in mc.design.locs_cols))
-        gen = torch.Generator().manual_seed(11)
+        key = DrawKey.of(11, 0, 0, 2, "cpu")
         st = mc.states
         carry = (st, vecchia_linv(mc.graph, shape_transform(cfg.shape_names,
                                                             st.shape)),
                  torch.zeros(2, device=d), torch.zeros(2, device=d))
         for it in range(3):
-            draws = G.IterationDraws.draw(gen, cfg, 2, mc.graph.n,
-                                          st.beta.shape[1], "cpu")
+            draws = G.IterationDraws.draw(key, it, cfg, mc.graph.n,
+                                          st.beta.shape[1])
             draws = draws.to(d)
             carry = G.gibbs_iteration(mc.graph, mc.data, cfg, carry, it, 0,
                                       draws)
@@ -561,22 +588,25 @@ def probe_yardsticks(dev):
 
 
 def run_counted(mc, n_iterations, per_iteration=1, **kw):
-    """``run`` with the sweep and factor-build kernels' launches counted
-    from zero; fails unless every iteration launched the sweep kernel
-    ``per_iteration`` times, the fused factor build ran once for the cycle's
-    factor and twice an ASIS pair (``run_counted.factor_launches``), the
-    K-input factor rows never (``run_counted.factor_rows_launches``), and
-    every state is finite."""
+    """``run`` with the sweep, factor-build and draws kernels' launches
+    counted from zero; fails unless every iteration launched the sweep
+    kernel ``per_iteration`` times and ``chain_draws`` once
+    (``run_counted.draw_launches``), the fused factor build ran once for
+    the cycle's factor and twice an ASIS pair
+    (``run_counted.factor_launches``), the K-input factor rows never
+    (``run_counted.factor_rows_launches``), and every state is finite."""
     import torch
 
     import nngp_tpu_torch
     from nngp_tpu_torch.ops import sweep
+    from nngp_tpu_torch.ops.draws import chain_draws
     from nngp_tpu_torch.ops.vecchia import linv_rows_from_K, vecchia_linv
 
     start = mc.iterations
     t = time.perf_counter()
     sweep.chromatic_sweeps.launches = 0
     vecchia_linv.launches = linv_rows_from_K.launches = 0
+    chain_draws.launches = 0
     mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=n_iterations,
                             **kw)
     torch.cuda.synchronize()
@@ -584,9 +614,14 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
     launches = sweep.chromatic_sweeps.launches
     run_counted.factor_launches = vecchia_linv.launches
     run_counted.factor_rows_launches = linv_rows_from_K.launches
+    run_counted.draw_launches = chain_draws.launches
     if launches != n_iterations * per_iteration:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
+    if run_counted.draw_launches != n_iterations:
+        raise RuntimeError(f"run launched the chain_draws kernel "
+                           f"{run_counted.draw_launches} times in "
+                           f"{n_iterations} iterations")
     want = 1 + 2 * kw.get("covparams_steps", 1) * n_iterations
     if (run_counted.factor_launches != want
             or run_counted.factor_rows_launches):
@@ -604,6 +639,112 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
         if not bool(torch.isfinite(getattr(mc.states, f)).all()):
             raise RuntimeError(f"non-finite {f} after run")
     return mc, secs, launches
+
+
+
+
+def _ulps(a, b):
+    """float32 ulps between a and b of one sign (their bit patterns' gap)."""
+    import torch
+
+    return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
+
+
+def draws_check(mc):
+    """The chain_draws kernel at the main path's layout (``mc``'s sites,
+    covariates and shape parameters; K = 1, 10 sweeps, 10 noise steps) for
+    chains [0, C), C in DRAW_CHAINS, at DRAW_KEY: every field bit for bit
+    with the twin on the card and with a repeat call; against the CPU twin
+    (8 chains at a time) the Philox words and the uniforms bit for bit, at
+    most DRAW_DIFF_SHARE of the normals differing, each by at most
+    DRAW_ULPS; median ms of 21 CUDA events of the kernel, of the twin on
+    the card and of torch.randn + torch.rand of the same shapes, beside
+    the bound, and the kernel's device time back to back behind a spin
+    kernel (``device_ms``: without the wrapper's host work).  Returns {C:
+    figures}."""
+    import torch
+
+    from nngp_tpu_torch.experiments import timing
+    from nngp_tpu_torch.models import gaussian as G
+    from nngp_tpu_torch.ops import draws
+
+    cfg = G.UpdateConfig(
+        n_iterations=1,
+        shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
+        locs_cols=tuple(int(c) for c in mc.design.locs_cols))
+    layout = G.IterationDraws.layout(cfg, mc.graph.n, mc.states.beta.shape[1])
+    count = {k: math.prod(v) for k, v in layout.items()}
+    normal = {k for k in layout if draws.FIELDS[k][1] == draws.NORMAL}
+    seed, start, it = DRAW_KEY
+    dev = mc.states.field.device
+    out = {}
+    for C in DRAW_CHAINS:
+        ids = torch.arange(C, device=dev)
+        call = functools.partial(draws.chain_draws_cuda, seed, start, ids, it,
+                                 layout)
+        got, again = call(), call()
+        twin = draws.chain_draws_reference(seed, start, ids, it, layout)
+        torch.cuda.synchronize()
+        for k in layout:
+            if not (torch.equal(got[k], twin[k])
+                    and torch.equal(got[k], again[k])):
+                raise RuntimeError(f"chain_draws, {C} chains: field {k} "
+                                   "differs from the twin on the card or "
+                                   "between two calls")
+            if not bool(torch.isfinite(got[k]).all()):
+                raise RuntimeError(f"chain_draws: non-finite {k}")
+        differ, n_normals, worst = 0, 0, 0
+        for lo in range(0, C, 8):
+            part = torch.arange(lo, min(C, lo + 8))
+            cpu = draws.chain_draws_reference(seed, start, part, it, layout)
+            for k in layout:
+                words = [draws.chain_words(seed, start, p, it, k, count[k])
+                         .cpu() for p in (part.to(dev), part)]
+                if not torch.equal(*words):
+                    raise RuntimeError(f"chain_draws, chains {lo}+: the "
+                                       f"Philox words of {k} differ from "
+                                       "the CPU twin's")
+                a, b = got[k][lo:lo + 8].cpu(), cpu[k]
+                diff = a != b
+                if k not in normal and bool(diff.any()):
+                    raise RuntimeError(f"chain_draws: uniforms of {k} differ "
+                                       "from the CPU twin's")
+                if k in normal:
+                    n_normals += a.numel()
+                    differ += int(diff.sum())
+                    if bool(diff.any()):
+                        worst = max(worst, int(_ulps(a[diff], b[diff]).max()))
+        if differ > DRAW_DIFF_SHARE * n_normals or worst > DRAW_ULPS:
+            raise RuntimeError(f"chain_draws, {C} chains: {differ} of "
+                               f"{n_normals} normals differ from the CPU "
+                               f"twin's, by up to {worst} ulps")
+        n_norm = C * sum(count[k] for k in normal)
+        n_unif = C * sum(count[k] for k in layout if k not in normal)
+        calls = C * sum(-(-count[k] // 4) for k in normal)
+        bound_ms, bound_by = _bound(4 * (n_norm + n_unif) + 8 * C,
+                                    calls * DRAW_F64_OPS, f64=True)
+        del got, again, twin
+        o = {"max_abs_err": 0.0, "cpu_differ": differ,
+             "cpu_normals": n_normals, "cpu_max_ulps": worst,
+             "ms": timing.median_ms(call, 21),
+             "device_ms": timing.per_call_ms(call, 50)[0],
+             "plain_ms": timing.median_ms(
+                 lambda: draws.chain_draws_reference(seed, start, ids, it,
+                                                     layout), 21),
+             "library_ms": timing.median_ms(
+                 lambda: (torch.randn(C, n_norm // C, device=dev),
+                          torch.rand(C, n_unif // C, device=dev)), 21),
+             "bound_ms": bound_ms, "bound_by": bound_by}
+        out[C] = o
+        print(f"  {C} chains, {n_norm} normals and {n_unif} uniforms: "
+              f"kernel = twin on the card bit for bit, repeat call too; vs "
+              f"the CPU twin: words and uniforms bit for bit, {differ} of "
+              f"{n_normals} normals differ (max {worst} ulp); kernel "
+              f"{o['ms']:.4f} ms ({o['device_ms']:.4f} ms back to back), "
+              f"twin {o['plain_ms']:.3f} ms, randn + rand "
+              f"{o['library_ms']:.4f} ms, bound {1e3 * bound_ms:.2f} us by "
+              f"{bound_by}", flush=True)
+    return out
 
 
 def examples(td):
@@ -817,6 +958,10 @@ def factor_rows(mc, mm):
 # ~4 Newton fmas (8).
 SFU = 8
 F64_TRANS, F64_SQRT = 20, 8
+# one Philox call of normals in csrc/chain_draws.cu: two Box-Muller pairs,
+# each a float64 log, cos and sin, a square root and 8 conversions,
+# multiplies and adds (the integer rounds run on other pipes, left out)
+DRAW_F64_OPS = 2 * (3 * F64_TRANS + F64_SQRT + 8)
 # (operations, transcendentals, square roots) of each piece
 PIECES = {
     "dist": (3, 0, 1),          # d2g / rr (G = 1), max, sqrt; then K v
@@ -1309,18 +1454,20 @@ def entry_run():
 
     from nngp_tpu_torch.entry import entry
     from nngp_tpu_torch.ops import sweep
+    from nngp_tpu_torch.ops.draws import chain_draws
 
     fn, args = entry()
-    sweep.chromatic_sweeps.launches = 0
+    sweep.chromatic_sweeps.launches = chain_draws.launches = 0
     states, recs = fn(*args)
     torch.cuda.synchronize()
     for k, v in recs.items():
         if not bool(torch.isfinite(v).all()):
             raise RuntimeError(f"entry(): non-finite {k} records")
     T, C = recs["log_scale"].shape
-    if sweep.chromatic_sweeps.launches != T:
+    if sweep.chromatic_sweeps.launches != T or chain_draws.launches != T:
         raise RuntimeError(f"entry(): {sweep.chromatic_sweeps.launches} "
-                           f"sweep kernel launches in {T} iterations")
+                           f"sweep kernel and {chain_draws.launches} "
+                           f"chain_draws launches in {T} iterations")
     return sweep.chromatic_sweeps.launches, C, T
 
 
@@ -1375,7 +1522,12 @@ def chains_mesh_parity(mc, dev, td):
 def two_ranks(dev, locs, y, X, td):
     """A 6-chain fit saved once, then resumed for 25 iterations by
     ``nngp_tpu_torch.parallel.resume`` as one process and twice as two gloo
-    ranks on the card; returns {launch name: per-rank JSON lines}."""
+    ranks on the card; returns ({launch name: per-rank JSON lines}, the
+    count of state elements of the 2 x 3 fit that differ from the 1 x 6
+    fit's, elements).  The 2 x 3 fit's records of the first FIRST_ITERS
+    iterations are held to the 1 x 6 fit's at
+    tests/test_parallel.py::test_sharded_cycle_matches_vmap's tolerances."""
+    import numpy as np
 
     import nngp_tpu_torch
     from nngp_tpu_torch.parallel.distributed import launch_local
@@ -1384,10 +1536,11 @@ def two_ranks(dev, locs, y, X, td):
     nngp_tpu_torch.save(nngp_tpu_torch.initialize(
         locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
         n_chains=6, seed=1, device=dev, verbose=False), path)
-    argv = ["-m", "nngp_tpu_torch.parallel.resume", path, "--iterations",
-            "25", "--mesh-device", "cpu"]
-    out = {}
+    out, saved = {}, {}
     for name, world in (("1 x 6", 1), ("2 x 3", 2), ("2 x 3 again", 2)):
+        saved[name] = os.path.join(td, f"resumed{len(saved)}.pkl")
+        argv = ["-m", "nngp_tpu_torch.parallel.resume", path, "--iterations",
+                "25", "--mesh-device", "cpu", "--save", saved[name]]
         out[name] = [json.loads(text.strip().splitlines()[-1])
                      for text in launch_local(argv, world, timeout=300)]
     for name, ranks in out.items():
@@ -1402,7 +1555,23 @@ def two_ranks(dev, locs, y, X, td):
                                        f"{r['rank']}'s {k} differs")
     if out["2 x 3"][0]["digest"] != out["2 x 3 again"][0]["digest"]:
         raise RuntimeError("two ranks: a second launch gave other chains")
-    return out
+    one, two = (nngp_tpu_torch.load(saved[k], device="cpu")
+                for k in ("1 x 6", "2 x 3"))
+    for c, (a, b) in enumerate(zip(two.records, one.records)):
+        for k, rtol, atol in (("log_scale", 1e-5, 0.0),
+                              ("field", 1e-4, 1e-4)):
+            x, z = a[k][:FIRST_ITERS], b[k][:FIRST_ITERS]
+            if not np.allclose(x, z, rtol=rtol, atol=atol):
+                raise RuntimeError(
+                    f"two ranks: chain {c}'s {k} records of the first "
+                    f"{FIRST_ITERS} iterations differ between 2 x 3 and "
+                    f"1 x 6 by up to {np.abs(x - z).max():.3e}")
+    differ = total = 0
+    for f in STATE_KEYS:
+        x, z = getattr(two.states, f), getattr(one.states, f)
+        differ += int((x != z).sum())
+        total += x.numel()
+    return out, differ, total
 
 
 def halo_one_rank(dev, td):
@@ -1745,7 +1914,7 @@ def main():
         return 1
     import nngp_tpu_torch
     from nngp_tpu_torch.experiments import gather_ops
-    from nngp_tpu_torch.ops import _build, sweep, vecchia
+    from nngp_tpu_torch.ops import _build, draws, sweep, vecchia
     from nngp_tpu_torch.preprocess.coloring import dag_levels
     from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
 
@@ -1764,7 +1933,8 @@ def main():
                 vecchia._factor_library, part, 5)
                for part in vecchia.FACTOR_PARTS},
             "gather_sweep": gather_ops._sweep_library,
-            "gather_probes": gather_ops._probe_library}
+            "gather_probes": gather_ops._probe_library,
+            "chain_draws": draws._library}
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(build) for build in libs.values()]:
             f.result()
@@ -1800,6 +1970,17 @@ def main():
           " ms at 3 (medians)", t)
 
     t = time.perf_counter()
+    dr = draws_check(mc)
+    phase("draws", "chain_draws at the main path's layout: kernel "
+          + ", ".join(f"{dr[C]['ms']:.4f} ms at {C} chains (bound "
+                      f"{dr[C]['bound_ms']:.4f}, randn + rand "
+                      f"{dr[C]['library_ms']:.4f})" for C in DRAW_CHAINS)
+          + "; bit for bit with its twin on the card; normals differing "
+          "from the CPU twin: " + ", ".join(
+              f"{dr[C]['cpu_differ']} of {dr[C]['cpu_normals']}"
+              for C in DRAW_CHAINS), t)
+
+    t = time.perf_counter()
     gp = gather_probes(dev)
     phase("gather probes", "kernel / plain ms: " + ", ".join(
         f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} ({v['launches']} launches)"
@@ -1816,10 +1997,12 @@ def main():
         raise RuntimeError("non-finite covariance estimates")
     factor_launches = run_counted.factor_launches
     fr_main_launches = run_counted.factor_rows_launches
+    draw_launches = run_counted.draw_launches
     phase("main path", f"run 25 iterations x 3 chains: {run_s:.3f} s = "
           f"{1e3 * run_s / 25:.2f} ms/iteration (cold), sweep kernel "
           f"launches {launches}, factor build launches {factor_launches} "
-          f"(K-input factor rows {fr_main_launches})", t)
+          f"(K-input factor rows {fr_main_launches}), chain_draws launches "
+          f"{draw_launches}", t)
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(tab["names"], tab["table"])}) + f" columns {tab['columns']}")
@@ -1982,7 +2165,7 @@ def main():
               f"{grb_err:.3e} <= 1e-10", t)
 
         t = time.perf_counter()
-        ranks = two_ranks(dev, locs, y, X, td)
+        ranks, differ, total = two_ranks(dev, locs, y, X, td)
         phase("two ranks", "resume of a 6-chain fit, 25 iterations, "
               f"n={mc.graph.n}, gloo on one card: " + "; ".join(
                   f"{name}: " + ", ".join(f"{r['ms_per_iteration']:.2f}"
@@ -1990,7 +2173,11 @@ def main():
                   for name, rs in ranks.items())
               + "; the ranks agree on R-hat and digest, the second 2-rank "
               "launch gives the same digest "
-              f"{ranks['2 x 3'][0]['digest'][:12]}", t)
+              f"{ranks['2 x 3'][0]['digest'][:12]}; 2 x 3 holds 1 x 6's "
+              f"records of the first {FIRST_ITERS} iterations (log_scale "
+              "rtol 1e-5, field rtol = atol = 1e-4); after 25 iterations "
+              f"{differ} of {total} state elements differ (1 x 6 digest "
+              f"{ranks['1 x 6'][0]['digest'][:12]})", t)
 
         t = time.perf_counter()
         step_launches, steps, step_err, step_tol = halo_steps(mc)
@@ -2137,6 +2324,23 @@ def main():
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")},
         "matern_sphere": {k: fr["matern_sphere 3 chains"][k] for k in (
             "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms")}}
+        ] + [{
+        "name": "chain_draws", "route": "cuda",
+        "source": "nngp_tpu_torch/csrc/chain_draws.cu",
+        "replaces": "nngp_tpu/api.py:599 (the per-chain keys fold_in("
+                    "fold_in(key(seed), iter_start), i) under "
+                    "jax.random.normal/uniform in nngp_tpu/models/"
+                    "gaussian.py; XLA's threefry, not a Pallas kernel)",
+        "launches": draw_launches,
+        **{k: dr[3][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")},
+        "device_ms": dr[3]["device_ms"],
+        "96_chains": {k: dr[96][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")},
+        "cpu_twin": {C: {k: dr[C][k] for k in (
+            "cpu_differ", "cpu_normals", "cpu_max_ulps")}
+            for C in DRAW_CHAINS}}
         ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))

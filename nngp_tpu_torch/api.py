@@ -34,6 +34,7 @@ from nngp_tpu_torch.models.gaussian import (
     run_cycle,
 )
 from nngp_tpu_torch.ops.covariance import require_supported, shape_param_names
+from nngp_tpu_torch.ops.draws import DrawKey
 from nngp_tpu_torch.preprocess.dedupe import ObsMaps, dedupe_and_match
 from nngp_tpu_torch.preprocess.design import Design, build_design
 from nngp_tpu_torch.preprocess.graph import VecchiaGraph, build_graph
@@ -327,16 +328,13 @@ def initialize(
     return mc
 
 
-def _cycle_generator(mc: MCMC, cycle_start: int, lo: int = 0
-                     ) -> torch.Generator:
-    """The cycle's random stream for the chains from ``lo`` on, a function of
-    (seed, first iteration, lo): resuming a fit continues the stream one
-    long run would have used; ``lo = 0`` is the stream of an unsharded
-    run, which draws for all its chains at once."""
-    gen = torch.Generator(device=mc.device)
-    gen.manual_seed(int(mc.seed) * 1_000_003 + int(cycle_start)
-                    + int(lo) * 2**40)
-    return gen
+def _cycle_key(mc: MCMC, cycle_start: int) -> DrawKey:
+    """The cycle's draw key for every chain of the fit: chain i's numbers
+    are a function of (seed, cycle start, i) only, ``nngp_tpu``'s
+    ``fold_in(fold_in(key(seed), iter_start), i)``, so resuming a fit
+    continues the chains one long run would have drawn, and a mesh rank
+    (``parallel/chains.py``) draws its chains' rows of it."""
+    return DrawKey.of(mc.seed, cycle_start, 0, mc.n_chains, mc.device)
 
 
 def _halo_plan(mc: MCMC, sites):
@@ -435,16 +433,18 @@ def run(
     size must divide), advances its chains ``[lo, hi)``
     (``parallel.local_chain_slice``) on its own device, and at each cycle's
     end the ranks exchange states and records, so every rank leaves with
-    the whole fit and takes the same early-stop decision.  Rank r draws
-    from the stream of (seed, cycle start, lo): a mesh of one rank gives
-    the chains of ``run`` without a mesh bit for bit, and a mesh of k ranks
-    gives chains that depend on (seed, k) only.
+    the whole fit and takes the same early-stop decision.  Each chain
+    draws from its own key (seed, cycle start, chain id), so rank r draws
+    its chains' numbers of ``run`` without a mesh: a mesh of one rank gives
+    ``run``'s chains bit for bit, and a mesh of k ranks gives them up to
+    the rounding of the few products whose kernels depend on the batch's
+    chain count.
 
     A ``("chains", "sites")`` mesh (``parallel.halo_mesh``) is halo mode:
     the chains are sharded over its "chains" dimension as above, and each
     chains block's iteration is sharded by sites over its "sites" ranks
-    (``parallel/halo_gibbs.py``), which all draw the block's stream.  The
-    plan is built once per sites rank and kept on ``mc``.  A
+    (``parallel/halo_gibbs.py``), which all draw the block's chains'
+    numbers.  The plan is built once per sites rank and kept on ``mc``.  A
     1 x 1 mesh gives ``run``'s chains bit for bit; more sites ranks change
     only the order in which the cross-rank sums add.
     ``field_record_columns`` is refused there.  Only the rank holding chain
@@ -500,7 +500,7 @@ def run(
         t_cycle = time.time()
         cycle_start = mc.iterations
         states, recs = cycle_fn(mc.states,
-                                _cycle_generator(mc, cycle_start, lo),
+                                _cycle_key(mc, cycle_start),
                                 cycle_start, saved_slots=slots)
         mc.states = states
         recs = {k: v.cpu().numpy() for k, v in recs.items()}

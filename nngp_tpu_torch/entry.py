@@ -44,9 +44,11 @@ def _toy_problem(n=96, n_chains=3, seed=0, m=4, device="cuda"):
 
 
 def entry(device="cuda"):
-    """(fn, example_args): ``fn(states, gen, iter_start)`` runs one cycle of
-    2 iterations of every chain and returns (states, records)."""
+    """(fn, example_args): ``fn(states, key, iter_start)`` runs one cycle of
+    2 iterations of every chain with the draw key ``key`` and returns
+    (states, records)."""
     from nngp_tpu_torch.models.gaussian import UpdateConfig, run_cycle
+    from nngp_tpu_torch.ops.draws import DrawKey
 
     mc = _toy_problem(n=96, n_chains=2, device=device)
     cfg = UpdateConfig(
@@ -57,11 +59,11 @@ def entry(device="cuda"):
     )
     graph, data = mc.graph, mc.data
 
-    def fn(states, gen, iter_start):
-        return run_cycle(graph, data, cfg, states, gen, iter_start)
+    def fn(states, key, iter_start):
+        return run_cycle(graph, data, cfg, states, key, iter_start)
 
-    gen = torch.Generator(device=mc.device).manual_seed(0)
-    return fn, (mc.states, gen, 0)
+    return fn, (mc.states, DrawKey.of(mc.seed, 0, 0, mc.n_chains, mc.device),
+                0)
 
 
 def _dryrun_rank(n_devices: int, device_type: str) -> dict:

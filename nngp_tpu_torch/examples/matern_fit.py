@@ -12,7 +12,10 @@ runs a short fit (n <= 400, <= 2 cycles of <= 100 iterations) and only
 checks that every estimate is finite.
 
 Run:  python -m nngp_tpu_torch.examples.matern_fit [--n 2000] [--quick]
-          [--log LOG] [--device cuda|cpu] [--out DIR]
+          [--seed 4] [--log LOG] [--device cuda|cpu] [--out DIR]
+
+``--seed`` is the fit's seed (its initial states and its chains' draws);
+the simulated truth stays the same.
 """
 
 from __future__ import annotations
@@ -56,6 +59,8 @@ def parse_args(argv=None):
                          "smaller noise makes the toy sharper on nu")
     ap.add_argument("--quick", action="store_true",
                     help="a short fit with no convergence assertion")
+    ap.add_argument("--seed", type=int, default=INIT["seed"],
+                    help="the fit's seed; the simulated truth stays the same")
     ap.add_argument("--log", default=None,
                     help=f"jsonl log (default <out>/{LOG_NAME})")
     args = ap.parse_args(argv)
@@ -79,7 +84,8 @@ def main(argv=None) -> dict:
                        truth["scale"], truth["noise_var"], truth["beta_0"])
     t0 = time.time()
     mc = nngp_tpu_torch.initialize(locs, y, n_chains=args.chains,
-                                   device=device, **INIT)
+                                   device=device,
+                                   **{**INIT, "seed": args.seed})
     t_run = time.time()
     knobs = dict(n_iterations_update=args.iters,
                  Gelman_Rubin_Brooks_stop=(1.05, 1.03),
@@ -108,6 +114,7 @@ def main(argv=None) -> dict:
         print(f"  {nm:16s} mean={r[0]:8.4f}  CI=[{r[1]:8.4f}, {r[3]:8.4f}]")
     summary = {
         "backend": label, "n": args.n, "n_chains": mc.n_chains,
+        "seed": args.seed,
         "iterations": mc.iterations, "wall_s": round(wall, 1),
         "run_s": run_s, "ms_per_iteration": 1e3 * run_s / mc.iterations,
         "max_univariate_rhat": round(max_uni, 4),

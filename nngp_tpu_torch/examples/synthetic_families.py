@@ -17,7 +17,10 @@ Writes ``<out>/families_fits.jsonl``.  A full run asserts recovery;
 that every estimate is finite.
 
 Run:  python -m nngp_tpu_torch.examples.synthetic_families [--quick]
-          [--device cuda|cpu] [--out DIR]
+          [--seed 7] [--device cuda|cpu] [--out DIR]
+
+``--seed`` is the fits' seed (initial states and draws); the simulated
+truths stay those of seed 7.
 """
 
 from __future__ import annotations
@@ -49,13 +52,15 @@ def simulate(rng, covfun, n, ranges, scale, noise_var, beta_0):
 
 
 def fit_family(covfun, ranges, label, n=1600, seed=7, device="cuda",
-               n_cycles=14, n_iterations=250):
+               n_cycles=14, n_iterations=250, fit_seed=None):
+    """Simulate from ``seed``, fit from ``fit_seed`` (default ``seed``)."""
     rng = np.random.default_rng(seed)
     scale, noise_var, beta_0 = 2.0, 0.5, 1.0
     locs, y = simulate(rng, covfun, n, ranges, scale, noise_var, beta_0)
     t0 = time.time()
+    fit_seed = seed if fit_seed is None else fit_seed
     mc = nngp_tpu_torch.initialize(locs, y, stationary_covfun=covfun,
-                                   seed=seed, device=device, **INIT)
+                                   seed=fit_seed, device=device, **INIT)
     t_run = time.time()
     mc = nngp_tpu_torch.run(mc, n_cycles=n_cycles,
                             n_iterations_update=n_iterations,
@@ -68,7 +73,7 @@ def fit_family(covfun, ranges, label, n=1600, seed=7, device="cuda",
     gp = est["covariance_params"]["GpGp_covparams"]
     rows = dict(zip(gp["names"], gp["table"]))
     entry = {
-        "family": covfun, "label": label, "n": n,
+        "family": covfun, "label": label, "n": n, "seed": fit_seed,
         "iterations": mc.iterations, "wall_s": round(wall, 1),
         "run_s": run_s, "ms_per_iteration": 1e3 * run_s / mc.iterations,
         "max_univariate_rhat": round(float(np.max(grb["R_hat"][1:])), 3),
@@ -117,6 +122,9 @@ def parse_args(argv=None):
     ap = _common.parser(__doc__)
     ap.add_argument("--quick", action="store_true",
                     help="short fits with no recovery assertion")
+    ap.add_argument("--seed", type=int, default=7,
+                    help="the fits' seed; the simulated truths stay those "
+                         "of seed 7")
     return ap.parse_args(argv)
 
 
@@ -124,7 +132,8 @@ def main(argv=None) -> dict:
     args = parse_args(argv)
     device, label = _common.setup(args)
     size = QUICK if args.quick else FULL
-    out = [fit_family(covfun, ranges, tag, device=device, **size)
+    out = [fit_family(covfun, ranges, tag, device=device,
+                      fit_seed=args.seed, **size)
            for covfun, ranges, tag in FAMILIES]
     path = os.path.join(args.out, "families_fits.jsonl")
     with open(path, "w") as f:

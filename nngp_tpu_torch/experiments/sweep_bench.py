@@ -155,6 +155,7 @@ def _iterations(mc, T, carry=None, seed=0, chains=None, steps=1):
     the carry, synchronised."""
     from nngp_tpu_torch.models import gaussian as G
     from nngp_tpu_torch.ops.covariance import shape_transform
+    from nngp_tpu_torch.ops.draws import DrawKey
     from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
     st = mc.states if chains is None else tile_states(mc.states, chains)
@@ -168,10 +169,10 @@ def _iterations(mc, T, carry=None, seed=0, chains=None, steps=1):
         carry = (st, vecchia_linv(mc.graph, shape_transform(cfg.shape_names,
                                                             st.shape)),
                  zero, zero)
-    gen = torch.Generator(st.field.device).manual_seed(seed)
+    key = DrawKey.of(seed, 0, 0, st.field.shape[0], st.field.device)
     for it in range(T):
-        draws = G.IterationDraws.draw(gen, cfg, st.field.shape[0], mc.graph.n,
-                                      st.beta.shape[1], st.field.device)
+        draws = G.IterationDraws.draw(key, it, cfg, mc.graph.n,
+                                      st.beta.shape[1])
         carry = G.gibbs_iteration(mc.graph, mc.data, cfg, carry, it, 0, draws)
     torch.cuda.synchronize()
     return carry

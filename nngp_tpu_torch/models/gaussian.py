@@ -18,9 +18,13 @@ plus the adaptive step sizes and the adaptive-covariance (AM) proposal of
 
 Every block takes its random numbers as tensors (``IterationDraws``), so a
 test can inject the exact draws of ``nngp_tpu``; ``run_cycle`` draws them
-from the run's ``torch.Generator`` on the device.  Inside an iteration no
-value goes to the host: accepts are ``torch.where``, and Python branches
-only on host integers (iteration index, config).
+from the cycle's ``DrawKey`` (``ops/draws.py``): per-chain Philox
+counters, so a chain's numbers depend on (seed, cycle start, its global
+id, iteration, field, element) only, as ``nngp_tpu`` keys each chain, and
+one launch of the ``chain_draws`` kernel a card iteration writes them all.
+Inside an iteration no value goes to the host: accepts are
+``torch.where``, and Python branches only on host integers (iteration
+index, config).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.ops.covariance import shape_transform
+from nngp_tpu_torch.ops.draws import DrawKey
 from nngp_tpu_torch.ops.sweep import chromatic_sweeps
 from nngp_tpu_torch.ops.trisolve import level_solve
 from nngp_tpu_torch.ops.vecchia import (
@@ -128,33 +133,37 @@ class IterationDraws:
     noise_z: torch.Tensor    # [C, noise_steps]
     noise_u: torch.Tensor    # [C, noise_steps]
 
-    @classmethod
-    def draw(cls, gen: torch.Generator, cfg: UpdateConfig, C: int, n: int,
-             p: int, device, dtype=torch.float32) -> "IterationDraws":
-        """Fresh draws from ``gen`` on ``device``: three batched calls."""
+    @staticmethod
+    def layout(cfg: UpdateConfig, n: int, p: int) -> dict:
+        """{field: per-chain shape} of one iteration's draws, chains
+        leading (``ops/draws.py:chain_draws``'s layout)."""
         K = max(1, cfg.covparams_steps)
         d = 1 + len(cfg.shape_names)
-        p_locs = len(cfg.locs_cols)
-        sizes = [K * d, K * d, 2, 1, p + 1, p_locs + 1, cfg.noise_steps]
-        z = torch.randn(C, sum(sizes), generator=gen, device=device,
-                        dtype=dtype).split(sizes, dim=1)
-        u = torch.rand(C, 2 * K + cfg.noise_steps, generator=gen,
-                       device=device, dtype=dtype).split(
-                           [K, K, cfg.noise_steps], dim=1)
-        sweep = torch.randn(C, cfg.n_chromatic, n, generator=gen,
-                            device=device, dtype=dtype)
+        return {"anc_z": (K, d), "anc_u": (K,), "suf_z": (K, d),
+                "suf_u": (K,), "adapt_z": (2,), "beta0_z": (),
+                "beta_z": (p + 1,), "locs_z": (len(cfg.locs_cols) + 1,),
+                "sweep_z": (cfg.n_chromatic, n),
+                "noise_z": (cfg.noise_steps,), "noise_u": (cfg.noise_steps,)}
+
+    @classmethod
+    def draw(cls, key: DrawKey, it: int, cfg: UpdateConfig, n: int, p: int,
+             dtype=torch.float32) -> "IterationDraws":
+        """Iteration ``it``'s draws for ``key``'s chains on their device:
+        one ``chain_draws`` launch on a card, its twin on the CPU."""
+        z = key.draws(it, cls.layout(cfg, n, p))
+        z = {k: v.to(dtype) for k, v in z.items()}
         return cls(
-            anc_z=z[0].reshape(C, K, d).transpose(0, 1),
-            anc_u=u[0].T,
-            suf_z=z[1].reshape(C, K, d).transpose(0, 1),
-            suf_u=u[1].T,
-            adapt_z=z[2],
-            beta0_z=z[3][:, 0],
-            beta_z=z[4],
-            locs_z=z[5],
-            sweep_z=sweep,
-            noise_z=z[6],
-            noise_u=u[2],
+            anc_z=z["anc_z"].transpose(0, 1),
+            anc_u=z["anc_u"].T,
+            suf_z=z["suf_z"].transpose(0, 1),
+            suf_u=z["suf_u"].T,
+            adapt_z=z["adapt_z"],
+            beta0_z=z["beta0_z"],
+            beta_z=z["beta_z"],
+            locs_z=z["locs_z"],
+            sweep_z=z["sweep_z"],
+            noise_z=z["noise_z"],
+            noise_u=z["noise_u"],
         )
 
     def to(self, device) -> "IterationDraws":
@@ -524,11 +533,13 @@ RECORD_KEYS = ("beta_0", "beta", "log_scale", "log_noise_variance", "shape")
 
 
 def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
-              gen: torch.Generator, iter_start: int, saved_slots=None,
+              key: DrawKey, iter_start: int, saved_slots=None,
               iteration=gibbs_iteration, factor=vecchia_linv):
     """cfg.n_iterations iterations of every chain (one mclapply worker body
     per chain, ref :27-315): returns (state, records) with the records on
     the device, iterations leading ([T, C, ...]; "field" [n_saved, C, w]).
+    ``key`` is the cycle's draw key for ``state``'s chains (row c of the
+    state is chain ``key.chains[c]``).
 
     ``saved_slots`` (host ints [n_iterations], values in [0, cfg.n_saved])
     routes each iteration's field snapshot to a record row; the value
@@ -542,6 +553,10 @@ def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
     p = state.beta.shape[1]
     dev, dt = state.field.device, state.field.dtype
     n_saved = T if cfg.n_saved < 0 else cfg.n_saved
+    if tuple(key.chains.shape) != (C,) or key.chains.device != dev:
+        raise ValueError(f"the draw key holds {tuple(key.chains.shape)} "
+                         f"chain ids on {key.chains.device}, the state {C} "
+                         f"chains on {dev}")
     if saved_slots is None:
         saved_slots = np.arange(T)
     rec = {k: torch.empty((T,) + tuple(getattr(state, k).shape), dtype=dt,
@@ -555,7 +570,7 @@ def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
     zero = torch.zeros_like(state.log_scale)
     carry = (state, linv, zero, zero)
     for it in range(T):
-        draws = IterationDraws.draw(gen, cfg, C, n, p, dev, dt)
+        draws = IterationDraws.draw(key, it, cfg, n, p, dt)
         carry = iteration(graph, data, cfg, carry, it, iter_start, draws)
         state = carry[0]
         for k in RECORD_KEYS:

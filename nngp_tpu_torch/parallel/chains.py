@@ -97,16 +97,22 @@ def make_sharded_cycle_fn(graph, data, cfg, mesh, cycle=run_cycle):
     """``cycle`` (``run_cycle`` by default) with the chains sharded over
     ``mesh`` (its "chains" dimension).
 
-    ``call(states, gen, iter_start, saved_slots=None)`` takes every chain's
-    states (as every rank holds them), advances this rank's chains with
-    ``gen`` (the stream of this rank's chains), and returns (states,
-    records) of every chain, gathered from every chains block, in
-    ``run_cycle``'s layout (records iterations leading, chains second)."""
+    ``call(states, key, iter_start, saved_slots=None)`` takes every
+    chain's states and the cycle's draw key of every chain (as every rank
+    holds them), advances this rank's chains ``[lo, hi)`` with their rows
+    of ``key`` (``DrawKey.select``: the numbers ``run_cycle`` draws for
+    them in one batch), and returns (states, records) of every chain,
+    gathered from every chains block, in ``run_cycle``'s layout (records
+    iterations leading, chains second)."""
+    from nngp_tpu_torch.parallel.distributed import local_chain_slice
+
     chains = chains_submesh(mesh)
 
-    def call(states, gen, iter_start, saved_slots=None):
+    def call(states, key, iter_start, saved_slots=None):
+        lo, hi = local_chain_slice(states.field.shape[0], mesh)
         local, recs = cycle(graph, data, cfg, shard_states(states, mesh),
-                            gen, iter_start, saved_slots=saved_slots)
+                            key.select(lo, hi), iter_start,
+                            saved_slots=saved_slots)
         names = [f.name for f in fields(local)
                  if getattr(local, f.name) is not None]
         keys = list(recs)

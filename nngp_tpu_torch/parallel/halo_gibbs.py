@@ -26,7 +26,7 @@ The sums that the unsharded port accumulates in float64
 cross-rank sum (``psum``) gathers every rank's partials and adds them in
 rank order, so every rank gets the same bits whatever the backend's
 reduction order: the scalar blocks, which every sites rank computes from
-the same draws (``IterationDraws`` of the chains block's stream), then
+the same draws (``IterationDraws`` of the chains block's keys), then
 take the same MH decisions on every rank.  With one sites rank every
 partial is the whole sum and each step is the unsharded step.
 """
@@ -307,7 +307,7 @@ def halo_gibbs_iteration(graph, data, cfg, carry, it: int, iter_start: int,
 def make_halo_cycle_fn(graph, data, cfg, mesh, plan: LocalPlan):
     """``models/gaussian.py:run_cycle`` with the chains sharded over
     ``mesh["chains"]`` and the sites over ``mesh["sites"]``: ``call(states,
-    gen, iter_start, saved_slots=None)`` as ``chains.make_sharded_cycle_fn``
+    key, iter_start, saved_slots=None)`` as ``chains.make_sharded_cycle_fn``
     gives it, every rank leaving with every chain.  ``plan`` is this sites
     rank's part (``HaloPlan.for_rank``), on the data's device."""
     group = mesh[SITES_AXIS].get_group()

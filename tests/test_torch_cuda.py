@@ -19,8 +19,9 @@ import nngp_tpu_torch
 from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
                                         gather_probe, gather_probe2)
 from nngp_tpu_torch.models import gaussian as G
-from nngp_tpu_torch.ops import sweep
+from nngp_tpu_torch.ops import draws, sweep
 from nngp_tpu_torch.ops.covariance import shape_transform
+from nngp_tpu_torch.ops.draws import DrawKey
 from nngp_tpu_torch.ops.vecchia import vecchia_linv
 from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
 
@@ -212,14 +213,14 @@ def test_gibbs_iterations_card_match_cpu():
             n_iterations=3,
             shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
             locs_cols=tuple(int(c) for c in mc.design.locs_cols))
-        gen = torch.Generator().manual_seed(3)
+        key = DrawKey.of(3, 0, 0, C, "cpu")
         st = mc.states
         carry = (st, vecchia_linv(mc.graph, shape_transform(cfg.shape_names,
                                                             st.shape)),
                  torch.zeros(C, device=d), torch.zeros(C, device=d))
         for it in range(3):
-            draws = G.IterationDraws.draw(gen, cfg, C, mc.graph.n,
-                                          st.beta.shape[1], "cpu")
+            draws = G.IterationDraws.draw(key, it, cfg, mc.graph.n,
+                                          st.beta.shape[1])
             carry = G.gibbs_iteration(mc.graph, mc.data, cfg, carry, it, 0,
                                       draws.to(d))
         out[str(d)] = carry
@@ -232,6 +233,97 @@ def test_gibbs_iterations_card_match_cpu():
         b = getattr(card[0], f).cpu().numpy()
         np.testing.assert_allclose(b, a, atol=1e-3 * max(1.0, np.abs(a).max()),
                                    err_msg=f)
+
+
+# --- the draws kernel ------------------------------------------------------------
+
+DRAW_SITES = 20_000
+
+
+def _draw_layout():
+    """The main path's fields (K = 1, one shape parameter, 14 covariates,
+    10 sweeps) at DRAW_SITES sites."""
+    cfg = G.UpdateConfig(n_iterations=1, shape_names=("log_range",),
+                         locs_cols=tuple(range(14)))
+    return G.IterationDraws.layout(cfg, DRAW_SITES, 14)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 96])
+def test_chain_draws_kernel_matches_twins(chains):
+    """csrc/chain_draws.cu against its twin run on the card: every field bit
+    for bit, one launch counted, repeat calls bit for bit.  Against the
+    twin on the CPU: the Philox words and the uniforms bit for bit, the
+    normals equal but for at most 1 in 1e6, each within 1 float32 ulp (the
+    card's float64 libm against the CPU's)."""
+    dev = _card()
+    layout = _draw_layout()
+    ids = torch.arange(7, 7 + chains, device=dev)
+    key = (2**40 + 5, 300, 11)
+    draws.chain_draws.launches = 0
+    got = draws.chain_draws(key[0], key[1], ids, key[2], layout)
+    assert draws.chain_draws.launches == 1
+    again = draws.chain_draws(key[0], key[1], ids, key[2], layout)
+    twin = draws.chain_draws_reference(key[0], key[1], ids, key[2], layout)
+    cpu = draws.chain_draws_reference(key[0], key[1], ids.cpu(), key[2],
+                                      layout)
+    torch.cuda.synchronize()
+    differ = total = 0
+    for name, shape in layout.items():
+        assert got[name].shape == (chains,) + shape
+        assert torch.equal(got[name], twin[name]), name
+        assert torch.equal(got[name], again[name]), name
+        count = int(np.prod(shape))
+        np.testing.assert_array_equal(
+            draws.chain_words(key[0], key[1], ids, key[2], name,
+                              count).cpu().numpy(),
+            draws.chain_words(key[0], key[1], ids.cpu(), key[2], name,
+                              count).numpy(), err_msg=name)
+        a, b = got[name].cpu(), cpu[name]
+        if draws.FIELDS[name][1] == draws.UNIFORM:
+            assert torch.equal(a, b), name
+            continue
+        diff = a != b
+        differ += int(diff.sum())
+        total += a.numel()
+        ulps = (a[diff].view(torch.int32).long()
+                - b[diff].view(torch.int32).long()).abs()
+        assert (ulps <= 1).all(), name
+    assert differ * 1e6 <= total, (differ, total)
+    assert draws.chain_draws.launches == 2
+
+
+@pytest.mark.gpu
+def test_chain_draws_refuses_what_it_does_not_take():
+    dev = _card()
+    ids = torch.arange(3, device=dev)
+    with pytest.raises(TypeError):
+        draws.chain_draws(1, 0, ids.float(), 0, {"anc_u": (2,)})
+    with pytest.raises(ValueError):
+        draws.chain_draws(1, 0, ids, 0, {"z": (2,)})
+    with pytest.raises(ValueError):
+        draws.chain_draws(1, 0, ids, 2**20, {"anc_u": (2,)})
+
+
+@pytest.mark.gpu
+def test_run_launches_chain_draws_once_an_iteration():
+    """On the card every iteration's numbers come from one chain_draws
+    launch, and the chains are those of the CPU run (the same keys) within
+    test_gibbs_iterations_card_match_cpu's 1e-3 * max(1, |x|)."""
+    dev = _card()
+    runs = {}
+    for d in ("cpu", dev):
+        draws.chain_draws.launches = 0
+        runs[str(d)] = nngp_tpu_torch.run(
+            _mc(d), n_iterations_update=3, verbose=False,
+            Gelman_Rubin_Brooks_stop=(0.0, 0.0))
+    assert draws.chain_draws.launches == 3
+    cpu, card = runs["cpu"], runs[str(dev)]
+    for a, b in zip(cpu.records, card.records):
+        for k in ("beta_0", "log_scale", "log_noise_variance", "shape"):
+            np.testing.assert_allclose(
+                b[k], a[k], atol=1e-3 * max(1.0, np.abs(a[k]).max()),
+                err_msg=k)
 
 
 # --- the factor rows kernel ---------------------------------------------------

@@ -8,8 +8,12 @@ through a file) resume it with ``python -m nngp_tpu_torch.parallel.resume``,
 problem.  Checked:
 
 - both ranks hold the same 4-chain fit, R-hat and early-stop decision;
-- a second launch gives the same chains, and rank 0's chains are those of
-  an unsharded run of a fit holding only them;
+- a second launch gives the same chains; every rank's chains are those of
+  ``run()`` without a mesh, over the first 5 iterations within
+  tests/test_parallel.py::test_sharded_cycle_matches_vmap's tolerances
+  (each chain draws from its own key, as nngp_tpu's do); rank 0's chains
+  are those of an unsharded run of a fit holding only them, and the first
+  2 chains of a 4-chain ``run()`` those of a 2-chain one;
 - the fit rank 0 saved loads and resumes without a mesh (and on a one-rank
   mesh, the same bits), and ``nngp_tpu.load`` reads it;
 - the pooled posterior means agree with ``nngp_tpu``'s 4-chain run within
@@ -111,8 +115,9 @@ def _first_chains(mc, k):
 
 
 def test_rank0_chains_are_an_unsharded_run_of_them(two_ranks):
-    """Rank 0 draws from the stream of lo = 0, the one an unsharded run of
-    its 2 chains draws from: the same chains, bit for bit."""
+    """Rank 0's chains 0 and 1 draw from their own keys, as a 2-chain
+    ``run()`` of a fit holding only them does, in a batch of the same
+    size: the same chains, bit for bit, over the whole run."""
     mesh_fit = nngp_tpu_torch.load(two_ranks["saved"][0], device="cpu")
     alone = nngp_tpu_torch.run(
         _first_chains(nngp_tpu_torch.load(two_ranks["fit"], device="cpu"), 2),
@@ -120,6 +125,55 @@ def test_rank0_chains_are_an_unsharded_run_of_them(two_ranks):
         n_cycles=mesh_fit.iterations // ITERATIONS, verbose=False,
         Gelman_Rubin_Brooks_stop=(0.0, 0.0))
     assert fit_digest(alone) == fit_digest(_first_chains(mesh_fit, 2))
+
+
+FIRST = 5   # iterations, test_sharded_cycle_matches_vmap's cycle
+
+
+@pytest.fixture(scope="module")
+def first_iterations(two_ranks):
+    """``run()`` without a mesh for FIRST iterations of the saved 4-chain
+    fit, and of a fit holding only its first 2 chains."""
+    kw = dict(n_iterations_update=FIRST, verbose=False,
+              Gelman_Rubin_Brooks_stop=(0.0, 0.0))
+    fit = lambda: nngp_tpu_torch.load(two_ranks["fit"], device="cpu")  # noqa: E731
+    return (nngp_tpu_torch.run(fit(), **kw),
+            nngp_tpu_torch.run(_first_chains(fit(), 2), **kw))
+
+
+def _held_to_run(got, want, k):
+    """Chains [0, k) of records ``got`` against ``want`` over the first
+    FIRST iterations: test_sharded_cycle_matches_vmap's rtol 1e-5 on
+    log_scale and rtol = atol = 1e-4 on the field; returns whether every
+    record was bit for bit equal."""
+    exact = True
+    for c in range(k):
+        a, b = got[c], want[c]
+        np.testing.assert_allclose(a["log_scale"][:FIRST],
+                                   b["log_scale"][:FIRST], rtol=1e-5)
+        np.testing.assert_allclose(a["field"][:FIRST], b["field"][:FIRST],
+                                   rtol=1e-4, atol=1e-4)
+        for key in ("beta_0", "log_scale", "log_noise_variance", "shape",
+                    "field"):
+            exact &= np.array_equal(a[key][:FIRST], b[key][:FIRST])
+    return exact
+
+
+def test_every_rank_gives_run_chains(two_ranks, first_iterations):
+    """Both ranks' chains of the 2-rank mesh are ``run()``'s chains 0-3
+    (nngp_tpu's test_sharded_cycle_matches_vmap for the port)."""
+    mesh_fit = nngp_tpu_torch.load(two_ranks["saved"][0], device="cpu")
+    plain, _ = first_iterations
+    assert plain.iterations == FIRST
+    assert _held_to_run(mesh_fit.records, plain.records, 4)
+
+
+def test_first_chains_do_not_depend_on_the_chain_count(first_iterations):
+    """The first 2 chains of a 4-chain ``run()`` are a 2-chain ``run()``
+    of them (nngp_tpu's fold_in(ck, i) keys)."""
+    four, two = first_iterations
+    assert _held_to_run(four.records, two.records, 2)
+    assert fit_digest(_first_chains(four, 2)) == fit_digest(two)
 
 
 def test_saved_fit_resumes_without_a_mesh(two_ranks, tmp_path):

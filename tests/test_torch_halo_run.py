@@ -6,11 +6,11 @@ rank saves its fits and writes a file; the tests compare):
 
 - 1 x 1 meshes (rank 0: with covariates, rank 1: without) give ``run()``'s
   states and records bit for bit;
-- 1 x 2 meshes (ranks 0-1 with covariates, 2-3 without) and 2 x 2 meshes
-  (all four, both problems) match the run with the same chains streams,
-  ``run()`` for 1 x 2 and ``run(mc, mesh=<2-rank chains mesh>)`` for
-  2 x 2, within tests/test_halo_run.py's 5e-3 on the records and 2e-2 on
-  the last field snapshot; the sites ranks of a run hold the same fit;
+- 1 x 2 meshes (ranks 0-1 with covariates, 2-3 without), 2 x 2 meshes
+  (all four, both problems) and 2-rank chains meshes match ``run()``:
+  each chain draws from its own key, whatever block or rank holds it,
+  within tests/test_halo_run.py's 5e-3 on the records and 2e-2 on the
+  last field snapshot; the sites ranks of a run hold the same fit;
 - the 2 x 2 fit with covariates resumes to 50 iterations;
 - ``python -m nngp_tpu_torch.parallel.resume FIT --sites 2`` on the four
   ranks (a 2 x 2 mesh) reports its sites, its sweep-kernel launches and
@@ -112,7 +112,7 @@ pair = sub((2, 1, 2))                      # two 1 x 2 meshes
 go("1x2", ("cov", "nocov")[r // 2], pair)
 four = init_device_mesh("cpu", (2, 2), mesh_dim_names=("chains", "sites"))
 for name in ("nocov", "cov"):
-    # the same chains streams without sites: a 2-rank chains mesh
+    # the same chains without sites: a 2-rank chains mesh
     go("chains2", name, four["chains"])
     mc = go("2x2", name, four)
 go("resume", "cov", four, mc=mc)             # the 2 x 2 fit's second cycle
@@ -174,12 +174,14 @@ def test_one_by_one_mesh_equals_run(halo_runs, name):
 
 
 @pytest.mark.parametrize("case", ["1x2-cov", "1x2-nocov", "2x2-cov",
-                                  "2x2-nocov"])
+                                  "2x2-nocov", "chains2-cov",
+                                  "chains2-nocov"])
 def test_sharded_sites_match_the_same_streams(halo_runs, case):
+    """Every mesh against ``run()``: the draws are keyed per chain, so a
+    chains block draws its chains' numbers of the unsharded run."""
     mesh, name = case.split("-")
     a = _load(halo_runs, mesh, name)
-    b = (halo_runs["plain"][name] if mesh == "1x2"
-         else _load(halo_runs, "chains2", name))
+    b = halo_runs["plain"][name]
     assert a.iterations == b.iterations == PROBLEMS[name][1][
         "n_iterations_update"]
     _close(a, b)
