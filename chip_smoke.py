@@ -30,10 +30,20 @@ with a nonzero exit and no "ok" line:
                   call; against the twin on the CPU the Philox words and
                   the uniforms bit for bit, at most 1e-6 of the normals
                   differing and each by at most one float32 ulp (the
-                  card's float64 libm against the CPU's); median times of
-                  the kernel, the twin and torch.randn + torch.rand of the
-                  same shapes beside the bound (bytes written, float64
-                  operations)
+                  card's float64 libm against the CPU's); the same
+                  bit-for-bit checks at two ragged layouts (the sweep
+                  normals at 20,001 sites, every field at 5 numbers a
+                  chain; 97 chains); sincos against cos and sin alone at
+                  all 2^32 angles; the float64 and all instructions of one
+                  Philox call of normals counted in the SASS of the
+                  kernel each launch runs (cuobjdump; the listing to
+                  nngp_tpu_torch/_build/);
+                  the kernel's device time back to back and median times
+                  around the wrapper, of the twin and of torch.randn +
+                  torch.rand of the same shapes
+                  (experiments/draws_bench.py), beside the bound: bytes
+                  written, or the SASS-counted float64 instructions at
+                  132 SMs x 64 a clock at the card's highest SM clock
   7. gather probes the four kernels of the gather microbenchmarks
                   (nngp_tpu_torch/experiments: X1 gather_bench, X2
                   gather_probe, X3 gather_probe2) at the scripts' full
@@ -243,6 +253,10 @@ DRAW_KEY = (1, 25, 7)
 # normals, card against the CPU twin: at most this share may differ (the
 # card's float64 libm against the CPU's), each by at most one float32 ulp
 DRAW_DIFF_SHARE, DRAW_ULPS = 1e-6, 1
+# ragged layouts held bit for bit at 97 chains: the sweep normals at 20,001
+# sites (rows off 16-byte boundaries, ragged last calls) and every field at
+# 5 numbers a chain
+DRAW_RAGGED_CHAINS, DRAW_RAGGED_SITES, DRAW_RAGGED_COUNT = 97, 20_001, 5
 # audits: each headline figure <= max(AUDIT_FACTOR x the JAX script's figure
 # on the CPU on the same synthetic geometry, AUDIT_FLOOR)
 AUDIT_FACTOR, AUDIT_FLOOR = 3.0, 1e-3
@@ -650,49 +664,114 @@ def _ulps(a, b):
     return (a.view(torch.int32).long() - b.view(torch.int32).long()).abs()
 
 
-def draws_check(mc):
-    """The chain_draws kernel at the main path's layout (``mc``'s sites,
-    covariates and shape parameters; K = 1, 10 sweeps, 10 noise steps) for
-    chains [0, C), C in DRAW_CHAINS, at DRAW_KEY: every field bit for bit
-    with the twin on the card and with a repeat call; against the CPU twin
-    (8 chains at a time) the Philox words and the uniforms bit for bit, at
-    most DRAW_DIFF_SHARE of the normals differing, each by at most
-    DRAW_ULPS; median ms of 21 CUDA events of the kernel, of the twin on
-    the card and of torch.randn + torch.rand of the same shapes, beside
-    the bound, and the kernel's device time back to back behind a spin
-    kernel (``device_ms``: without the wrapper's host work).  Returns {C:
-    figures}."""
-    import torch
-
-    from nngp_tpu_torch.experiments import timing
+def _draw_layout(mc):
+    """{field: per-chain shape} of one main-path iteration of ``mc`` (K = 1,
+    10 sweeps, 10 noise steps)."""
     from nngp_tpu_torch.models import gaussian as G
-    from nngp_tpu_torch.ops import draws
 
     cfg = G.UpdateConfig(
         n_iterations=1,
         shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
         locs_cols=tuple(int(c) for c in mc.design.locs_cols))
-    layout = G.IterationDraws.layout(cfg, mc.graph.n, mc.states.beta.shape[1])
+    return G.IterationDraws.layout(cfg, mc.graph.n, mc.states.beta.shape[1])
+
+
+def _draws_held(layout, ids, words=True):
+    """chain_draws at ``layout`` for the chain ids ``ids`` (on the card):
+    every field bit for bit with the twin on the card and with a repeat
+    call, and finite; with ``words``, each field's Philox words bit for bit
+    with the CPU twin's.  Returns the kernel's fields."""
+    import torch
+
+    from nngp_tpu_torch.ops import draws
+
+    seed, start, it = DRAW_KEY
+    call = functools.partial(draws.chain_draws_cuda, seed, start, ids, it,
+                             layout)
+    got, again = call(), call()
+    twin = draws.chain_draws_reference(seed, start, ids, it, layout)
+    torch.cuda.synchronize()
+    for k, shape in layout.items():
+        if not (torch.equal(got[k], twin[k])
+                and torch.equal(got[k], again[k])):
+            raise RuntimeError(f"chain_draws, {ids.numel()} chains: field "
+                               f"{k} {shape} differs from the twin on the "
+                               "card or between two calls")
+        if not bool(torch.isfinite(got[k]).all()):
+            raise RuntimeError(f"chain_draws: non-finite {k}")
+        if words:
+            n = math.prod(shape)
+            w = [draws.chain_words(seed, start, p, it, k, n).cpu()
+                 for p in (ids, ids.cpu())]
+            if not torch.equal(*w):
+                raise RuntimeError(f"chain_draws: the Philox words of {k} "
+                                   f"{shape} differ from the CPU twin's")
+    return got
+
+
+def draws_check(layout, dev):
+    """The chain_draws kernel at the main path's ``layout`` (K = 1, 10
+    sweeps, 10 noise steps) for chains [0, C), C in DRAW_CHAINS, at
+    DRAW_KEY: every field bit for bit with the twin on the card and with a
+    repeat call; against the CPU twin (8 chains at a time) the Philox words
+    and the uniforms bit for bit, at most DRAW_DIFF_SHARE of the normals
+    differing, each by at most DRAW_ULPS.  The same bit-for-bit checks at
+    two ragged layouts (DRAW_RAGGED_*), and sincos against cos and sin
+    alone at all 2^32 angles.  Times (experiments/draws_bench.py:
+    time_draws): the kernel's device time back to back (``device_ms``,
+    without the wrapper's host work), the median around the wrapper over
+    21 CUDA events, the twin on the card and torch.randn + torch.rand of
+    the same shapes.  The bound is the larger of the bytes written over
+    3.35 TB/s and the FP64 floor: the float64 instructions a Philox call
+    of normals, counted in the SASS of the kernel the launch runs
+    (``draws_bench.sass_counts``), at 132 SMs x 64 a clock x the card's
+    highest SM clock.  Returns {C: figures, "sass": the counts a call of
+    each kernel by its calls a thread, "sincos_differ": words}."""
+    import torch
+
+    from nngp_tpu_torch.experiments import draws_bench, timing
+    from nngp_tpu_torch.ops import _build, draws
+
     count = {k: math.prod(v) for k, v in layout.items()}
     normal = {k for k in layout if draws.FIELDS[k][1] == draws.NORMAL}
     seed, start, it = DRAW_KEY
-    dev = mc.states.field.device
-    out = {}
+    listing = draws_bench.library_sass(draws._library()._name)
+    with open(os.path.join(_build.BUILD_DIR, "chain_draws.sass"), "w") as f:
+        f.write(listing)
+    mhz = draws_bench.max_sm_clock_mhz()
+    counts = {}
+    for C in DRAW_CHAINS:
+        calls = draws_bench.tile_calls(C, layout)
+        if calls not in counts:
+            counts[calls] = c = draws_bench.sass_counts(listing, calls)
+            print(f"  chain_draws_kernel<{calls}> SASS, a Philox call of "
+                  f"normals on its data's path: {c['f64']} float64 "
+                  f"arithmetic + {c['f64_conv']} float64 conversions, "
+                  f"{c['mufu64']} MUFU.*64H, {c['total']} instructions "
+                  f"({c['skipped']} of the tile left out); highest SM clock "
+                  f"{mhz:.0f} MHz", flush=True)
+    t = time.perf_counter()
+    sincos_differ = draws.sincos_differ(dev)
+    print(f"  sincos against cos and sin alone: {2**32} words checked, "
+          f"{sincos_differ} differ ({time.perf_counter() - t:.2f} s)",
+          flush=True)
+    if sincos_differ:
+        raise RuntimeError(f"chain_draws: sincos differs from cos and sin "
+                           f"at {sincos_differ} angles")
+    C = DRAW_RAGGED_CHAINS
+    ragged = {f"sweep_z at {DRAW_RAGGED_SITES} sites": dict(
+        layout, sweep_z=(layout["sweep_z"][0], DRAW_RAGGED_SITES)),
+        f"every field at {DRAW_RAGGED_COUNT}": {
+            k: (DRAW_RAGGED_COUNT,) for k in draws.FIELDS}}
+    for name, rag in ragged.items():
+        _draws_held(rag, torch.arange(C, device=dev))
+        print(f"  ragged layout, {name}, {C} chains: kernel = twin on the "
+              "card bit for bit, repeat call too, words = the CPU twin's",
+              flush=True)
+    out = {"sass": counts, "sincos_differ": sincos_differ}
     for C in DRAW_CHAINS:
         ids = torch.arange(C, device=dev)
-        call = functools.partial(draws.chain_draws_cuda, seed, start, ids, it,
-                                 layout)
-        got, again = call(), call()
-        twin = draws.chain_draws_reference(seed, start, ids, it, layout)
-        torch.cuda.synchronize()
-        for k in layout:
-            if not (torch.equal(got[k], twin[k])
-                    and torch.equal(got[k], again[k])):
-                raise RuntimeError(f"chain_draws, {C} chains: field {k} "
-                                   "differs from the twin on the card or "
-                                   "between two calls")
-            if not bool(torch.isfinite(got[k]).all()):
-                raise RuntimeError(f"chain_draws: non-finite {k}")
+        got = _draws_held(layout, ids, words=False)
         differ, n_normals, worst = 0, 0, 0
         for lo in range(0, C, 8):
             part = torch.arange(lo, min(C, lo + 8))
@@ -718,32 +797,35 @@ def draws_check(mc):
             raise RuntimeError(f"chain_draws, {C} chains: {differ} of "
                                f"{n_normals} normals differ from the CPU "
                                f"twin's, by up to {worst} ulps")
-        n_norm = C * sum(count[k] for k in normal)
-        n_unif = C * sum(count[k] for k in layout if k not in normal)
-        calls = C * sum(-(-count[k] // 4) for k in normal)
-        bound_ms, bound_by = _bound(4 * (n_norm + n_unif) + 8 * C,
-                                    calls * DRAW_F64_OPS, f64=True)
-        del got, again, twin
-        o = {"max_abs_err": 0.0, "cpu_differ": differ,
-             "cpu_normals": n_normals, "cpu_max_ulps": worst,
-             "ms": timing.median_ms(call, 21),
-             "device_ms": timing.per_call_ms(call, 50)[0],
-             "plain_ms": timing.median_ms(
-                 lambda: draws.chain_draws_reference(seed, start, ids, it,
-                                                     layout), 21),
-             "library_ms": timing.median_ms(
-                 lambda: (torch.randn(C, n_norm // C, device=dev),
-                          torch.rand(C, n_unif // C, device=dev)), 21),
-             "bound_ms": bound_ms, "bound_by": bound_by}
+        del got
+        o = draws_bench.time_draws(C, layout, DRAW_KEY, rounds=3, device=dev)
+        calls = draws_bench.tile_calls(C, layout)
+        f64_ms, issue_ms = draws_bench.floors(
+            C * draws_bench.shapes(layout)[2], counts[calls], mhz)
+        bytes_ms = o["bytes_ms"]
+        o.update(max_abs_err=0.0, cpu_differ=differ, cpu_normals=n_normals,
+                 cpu_max_ulps=worst, tile_calls=calls, max_sm_clock_mhz=mhz,
+                 f64_floor_ms=f64_ms, issue_floor_ms=issue_ms,
+                 bound_ms=max(bytes_ms, f64_ms),
+                 bound_by="bytes" if bytes_ms >= f64_ms else "operations",
+                 plain_ms=timing.median_ms(
+                     lambda: draws.chain_draws_reference(seed, start, ids, it,
+                                                         layout), 21))
         out[C] = o
-        print(f"  {C} chains, {n_norm} normals and {n_unif} uniforms: "
-              f"kernel = twin on the card bit for bit, repeat call too; vs "
-              f"the CPU twin: words and uniforms bit for bit, {differ} of "
-              f"{n_normals} normals differ (max {worst} ulp); kernel "
-              f"{o['ms']:.4f} ms ({o['device_ms']:.4f} ms back to back), "
-              f"twin {o['plain_ms']:.3f} ms, randn + rand "
-              f"{o['library_ms']:.4f} ms, bound {1e3 * bound_ms:.2f} us by "
-              f"{bound_by}", flush=True)
+        n_norm = C * draws_bench.shapes(layout)[0]
+        print(f"  {C} chains, {n_norm} normals: kernel = twin on the card "
+              f"bit for bit, repeat call too; vs the CPU twin: words and "
+              f"uniforms bit for bit, {differ} of {n_normals} normals "
+              f"differ (max {worst} ulp); kernel {o['device_ms']:.4f} ms "
+              f"back to back (runs "
+              f"{', '.join(f'{x:.4f}' for x in o['device_ms_runs'])}), "
+              f"{o['ms']:.4f} ms around the wrapper, twin "
+              f"{o['plain_ms']:.3f} ms, randn + rand {o['library_ms']:.4f} "
+              f"ms; bytes {1e3 * bytes_ms:.2f} us, FP64 floor "
+              f"{1e3 * f64_ms:.2f} us and issue floor {1e3 * issue_ms:.2f} "
+              f"us ({calls} calls a thread) at {mhz:.0f} MHz; bound by "
+              f"{o['bound_by']}",
+              flush=True)
     return out
 
 
@@ -958,10 +1040,6 @@ def factor_rows(mc, mm):
 # ~4 Newton fmas (8).
 SFU = 8
 F64_TRANS, F64_SQRT = 20, 8
-# one Philox call of normals in csrc/chain_draws.cu: two Box-Muller pairs,
-# each a float64 log, cos and sin, a square root and 8 conversions,
-# multiplies and adds (the integer rounds run on other pipes, left out)
-DRAW_F64_OPS = 2 * (3 * F64_TRANS + F64_SQRT + 8)
 # (operations, transcendentals, square roots) of each piece
 PIECES = {
     "dist": (3, 0, 1),          # d2g / rr (G = 1), max, sqrt; then K v
@@ -1970,13 +2048,17 @@ def main():
           " ms at 3 (medians)", t)
 
     t = time.perf_counter()
-    dr = draws_check(mc)
-    phase("draws", "chain_draws at the main path's layout: kernel "
-          + ", ".join(f"{dr[C]['ms']:.4f} ms at {C} chains (bound "
-                      f"{dr[C]['bound_ms']:.4f}, randn + rand "
-                      f"{dr[C]['library_ms']:.4f})" for C in DRAW_CHAINS)
-          + "; bit for bit with its twin on the card; normals differing "
-          "from the CPU twin: " + ", ".join(
+    dr = draws_check(_draw_layout(mc), dev)
+    phase("draws", "chain_draws at the main path's layout: device time "
+          "back to back " + ", ".join(
+              f"{dr[C]['device_ms']:.4f} ms at {C} chains (around the "
+              f"wrapper {dr[C]['ms']:.4f}; bound {dr[C]['bound_ms']:.4f} by "
+              f"{dr[C]['bound_by']}: bytes {dr[C]['bytes_ms']:.4f}, FP64 "
+              f"floor {dr[C]['f64_floor_ms']:.4f}; randn + rand "
+              f"{dr[C]['library_ms']:.4f})" for C in DRAW_CHAINS)
+          + "; bit for bit with its twin on the card, ragged layouts too; "
+          f"sincos = cos, sin at all 2^32 angles ({dr['sincos_differ']} "
+          "differ); normals differing from the CPU twin: " + ", ".join(
               f"{dr[C]['cpu_differ']} of {dr[C]['cpu_normals']}"
               for C in DRAW_CHAINS), t)
 
@@ -2334,10 +2416,16 @@ def main():
         "launches": draw_launches,
         **{k: dr[3][k] for k in ("max_abs_err", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")},
-        "device_ms": dr[3]["device_ms"],
+        **{k: dr[3][k] for k in ("device_ms", "bytes_ms", "f64_floor_ms",
+                                 "issue_floor_ms", "tile_calls",
+                                 "max_sm_clock_mhz")},
         "96_chains": {k: dr[96][k] for k in (
             "ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
-            "library_ms")},
+            "library_ms", "bytes_ms", "f64_floor_ms", "issue_floor_ms",
+            "tile_calls", "max_sm_clock_mhz")},
+        "sass_per_normal_call": {f"kernel<{c}>": v
+                                 for c, v in dr["sass"].items()},
+        "sincos_differ": dr["sincos_differ"],
         "cpu_twin": {C: {k: dr[C][k] for k in (
             "cpu_differ", "cpu_normals", "cpu_max_ulps")}
             for C in DRAW_CHAINS}}

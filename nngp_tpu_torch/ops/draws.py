@@ -135,8 +135,8 @@ def _words_to_values(words: torch.Tensor, kind: str) -> torch.Tensor:
     return torch.stack([z0, z1, z2, z3], dim=-1)
 
 
-def _check_packing(seed: int, cycle_start: int, it: int, layout: dict):
-    """Refuse what would overflow a field of the counter or the key."""
+def _check_key(seed: int, cycle_start: int, it: int):
+    """Refuse what would overflow a word of the counter or the key."""
     if not 0 <= seed < 2**64:
         raise ValueError(f"seed {seed} outside [0, 2^64)")
     if not 0 <= cycle_start < 2**32:
@@ -144,13 +144,24 @@ def _check_packing(seed: int, cycle_start: int, it: int, layout: dict):
     if not 0 <= it < 2**IT_BITS:
         raise ValueError(f"iteration {it} of the cycle outside "
                          f"[0, 2^{IT_BITS})")
-    for name, shape in layout.items():
+
+
+def _check_layout(layout):
+    """Refuse an unknown field, or one whose slice of a chain would
+    overflow the counter's element block."""
+    for name, shape in layout:
         if name not in FIELDS:
             raise ValueError(f"unknown draw field {name!r}; known: "
                              f"{sorted(FIELDS)}")
         if math.prod(shape) >= MAX_ELEMENTS:
             raise ValueError(f"field {name} holds {math.prod(shape)} "
                              f"numbers a chain, at most {MAX_ELEMENTS - 1}")
+
+
+def _check_packing(seed: int, cycle_start: int, it: int, layout: dict):
+    """Refuse what would overflow a field of the counter or the key."""
+    _check_key(seed, cycle_start, it)
+    _check_layout(layout.items())
 
 
 def _check_chains(chains: torch.Tensor):
@@ -188,7 +199,7 @@ def chain_draws_reference(seed: int, cycle_start: int, chains, it: int,
         count = math.prod(shape)
         vals = _words_to_values(
             _field_words(seed, cycle_start, chains, it, fid, count), kind)
-        out[name] = vals.reshape(len(chains), -1)[:, :count].reshape(
+        out[name] = vals.flatten(1)[:, :count].reshape(
             (len(chains),) + tuple(shape))
     return out
 
@@ -196,12 +207,63 @@ def chain_draws_reference(seed: int, cycle_start: int, chains, it: int,
 @functools.cache
 def _library():
     lib = _build.cuda_library("chain_draws")
-    p, i = ctypes.c_void_p, ctypes.c_int
+    p, i, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
     lib.chain_draws_launch.argtypes = [
-        p, p, i, i, p, p, p, p, ctypes.c_ulonglong, ctypes.c_uint,
-        ctypes.c_uint, p]
+        p, p, i, i, p, p, p, p, u64, ctypes.c_uint, ctypes.c_uint, p]
     lib.chain_draws_launch.restype = i
+    lib.chain_draws_sincos_check.argtypes = [p, p]
+    lib.chain_draws_sincos_check.restype = i
+    lib.chain_draws_tile_calls.argtypes = [ctypes.c_longlong]
+    lib.chain_draws_tile_calls.restype = i
     return lib
+
+
+@dataclass(frozen=True)
+class Packing:
+    """Where ``chain_draws_cuda`` puts a layout's fields for C chains in
+    its one float32 buffer of ``size`` numbers: each field a contiguous
+    [C, *shape] block from ``base`` (a multiple of 4 numbers, so that a
+    row of 4k numbers a chain starts 16-byte aligned and the kernel
+    writes it in float4s).  ``args`` are the launcher's per-field
+    arguments (n_fields, then ctypes arrays of the bases, counts, field
+    ids and kinds)."""
+
+    size: int
+    fields: tuple          # (name, base, [C, *shape], its strides)
+    args: tuple
+
+
+@functools.lru_cache(maxsize=64)
+def _pack(items: tuple, C: int, words: bool) -> Packing:
+    _check_layout(items)
+    fields, base, count = [], [], []
+    at = 0
+    for name, shape in items:
+        at = -(-at // 4) * 4
+        n = math.prod(shape)
+        view = torch.empty((C,) + shape, device="meta")
+        fields.append((name, at, view.shape, view.stride()))
+        base.append(at)
+        count.append(n)
+        at += C * n
+    F = len(items)
+    ll, ci = ctypes.c_longlong * F, ctypes.c_int * F
+    fids = [FIELDS[k][0] for k, _ in items]
+    kinds = [KIND_CODES[WORDS if words else FIELDS[k][1]] for k, _ in items]
+    return Packing(at, tuple(fields),
+                   (F, ll(*base), ci(*count), ci(*fids), ci(*kinds)))
+
+
+def packing(layout: dict, C: int, words: bool = False) -> Packing:
+    """The cached ``Packing`` of ``layout`` ({field: per-chain shape}) for
+    C chains; ``words`` packs every field as Philox words."""
+    return _pack(tuple((k, tuple(v)) for k, v in layout.items()), C, words)
+
+
+def views(buf: torch.Tensor, pk: Packing) -> dict:
+    """{field: its [C, *shape] view of ``buf``} under ``pk``."""
+    return {name: buf.as_strided(shape, stride, base)
+            for name, base, shape, stride in pk.fields}
 
 
 def chain_draws_cuda(seed: int, cycle_start: int, chains, it: int,
@@ -210,33 +272,34 @@ def chain_draws_cuda(seed: int, cycle_start: int, chains, it: int,
     buffer, each field a contiguous [C, *shape] view of it.  ``words``
     makes every field hold its Philox words' bits instead
     (``chain_words``)."""
-    _check_packing(seed, cycle_start, it, layout)
+    _check_key(seed, cycle_start, it)
     _check_chains(chains)
-    lib = _library()
     ids = chains.to(torch.int64).contiguous()
-    C = ids.numel()
-    counts = [math.prod(s) for s in layout.values()]
-    buf = torch.empty(C * sum(counts), dtype=torch.float32,
-                      device=chains.device)
-    out, base = {}, []
-    at = 0
-    for (name, shape), count in zip(layout.items(), counts):
-        out[name] = buf[at:at + C * count].view((C,) + tuple(shape))
-        base.append(at)
-        at += C * count
-    F = len(layout)
-    ll, ci = ctypes.c_longlong * F, ctypes.c_int * F
-    fids = [FIELDS[k][0] for k in layout]
-    kinds = [KIND_CODES[WORDS if words else FIELDS[k][1]] for k in layout]
-    stream = torch.cuda.current_stream(chains.device).cuda_stream
-    err = lib.chain_draws_launch(
-        buf.data_ptr(), ids.data_ptr(), C, F, ll(*base), ci(*counts),
-        ci(*fids), ci(*kinds), seed, cycle_start, it, stream)
+    pk = packing(layout, ids.numel(), words)
+    buf = torch.empty(pk.size, dtype=torch.float32, device=ids.device)
+    stream = torch.cuda.current_stream(ids.device).cuda_stream
+    err = _library().chain_draws_launch(
+        buf.data_ptr(), ids.data_ptr(), ids.numel(), *pk.args, seed,
+        cycle_start, it, stream)
     if err != 0:
         raise RuntimeError(f"chain_draws kernel launch failed: CUDA error "
                            f"{err}")
     chain_draws.launches += 1
-    return out
+    return views(buf, pk)
+
+
+def sincos_differ(device) -> int:
+    """How many of the 2^32 words b give an angle 2 pi (b + 0.5) 2^-32 (as
+    the kernel computes it) whose ``sincos`` on the card differs in a bit
+    from its ``cos`` and ``sin`` computed alone, as the twin computes them:
+    the check behind the kernel's one ``sincos`` a normal pair (0, or the
+    kernel's normals are not the twin's)."""
+    out = torch.zeros(1, dtype=torch.int64, device=device)
+    stream = torch.cuda.current_stream(out.device).cuda_stream
+    err = _library().chain_draws_sincos_check(out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"sincos check launch failed: CUDA error {err}")
+    return int(out.item())
 
 
 def chain_draws(seed: int, cycle_start: int, chains, it: int,
@@ -273,7 +336,7 @@ def chain_words(seed: int, cycle_start: int, chains, it: int, name: str,
     _check_chains(chains)
     words = _field_words(seed, cycle_start, chains, it, FIELDS[name][0],
                          count)
-    return words.reshape(len(chains), -1)[:, :count]
+    return words.flatten(1)[:, :count]
 
 
 @dataclass(frozen=True)

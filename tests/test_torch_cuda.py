@@ -248,18 +248,13 @@ def _draw_layout():
     return G.IterationDraws.layout(cfg, DRAW_SITES, 14)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("chains", [1, 3, 96])
-def test_chain_draws_kernel_matches_twins(chains):
-    """csrc/chain_draws.cu against its twin run on the card: every field bit
-    for bit, one launch counted, repeat calls bit for bit.  Against the
-    twin on the CPU: the Philox words and the uniforms bit for bit, the
-    normals equal but for at most 1 in 1e6, each within 1 float32 ulp (the
-    card's float64 libm against the CPU's)."""
-    dev = _card()
-    layout = _draw_layout()
-    ids = torch.arange(7, 7 + chains, device=dev)
-    key = (2**40 + 5, 300, 11)
+def _draws_held_to_twins(ids, key, layout):
+    """One chain_draws launch for ``ids`` against its twin run on the card:
+    every field bit for bit, one launch counted, a repeat call bit for bit.
+    Against the twin on the CPU: the Philox words and the uniforms bit for
+    bit, the normals equal but for at most 1 in 1e6, each within 1
+    float32 ulp (the card's float64 libm against the CPU's)."""
+    chains = ids.numel()
     draws.chain_draws.launches = 0
     got = draws.chain_draws(key[0], key[1], ids, key[2], layout)
     assert draws.chain_draws.launches == 1
@@ -291,6 +286,52 @@ def test_chain_draws_kernel_matches_twins(chains):
         assert (ulps <= 1).all(), name
     assert differ * 1e6 <= total, (differ, total)
     assert draws.chain_draws.launches == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 96])
+def test_chain_draws_kernel_matches_twins(chains):
+    """csrc/chain_draws.cu at the main path's layout against its twins
+    (``_draws_held_to_twins``)."""
+    dev = _card()
+    _draws_held_to_twins(torch.arange(7, 7 + chains, device=dev),
+                         (2**40 + 5, 300, 11), _draw_layout())
+
+
+def _ragged_layout(name):
+    """The main path's fields with the sweep normals at 20,001 sites
+    (200,010 numbers a chain, not a multiple of 4: no row after the first
+    starts 16-byte aligned), or every field at k numbers a chain."""
+    if name == "sweep-20001":
+        cfg = G.UpdateConfig(n_iterations=1, shape_names=("log_range",),
+                             locs_cols=tuple(range(14)))
+        return G.IterationDraws.layout(cfg, 20_001, 14)
+    k = int(name.split("-")[1])
+    return {field: (k,) for field in draws.FIELDS}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 96, 97])
+@pytest.mark.parametrize("layout", ["sweep-20001", "every-0", "every-1",
+                                    "every-3", "every-5", "every-7"])
+def test_chain_draws_ragged_layouts_match_twins(layout, chains):
+    """Rows that start off a 16-byte boundary, ragged last calls, fields
+    of 0 to 7 numbers a chain (no tile, or a tile with one live warp), an
+    odd chain count, and both tiles (four calls a thread at 96 and 97
+    chains of the 20,001-site layout, else one): the kernel against its
+    twins."""
+    dev = _card()
+    _draws_held_to_twins(torch.arange(3, 3 + chains, device=dev),
+                         (2**33 + 17, 1_000, 5), _ragged_layout(layout))
+
+
+@pytest.mark.gpu
+def test_sincos_gives_cos_and_sin_at_every_angle():
+    """The kernel takes cos and sin of each normal pair's angle from one
+    sincos: over all 2^32 words the card's sincos gives the same two
+    doubles as its cos and sin alone (as the twin's torch.cos and
+    torch.sin compute them)."""
+    assert draws.sincos_differ(_card()) == 0
 
 
 @pytest.mark.gpu

@@ -14,7 +14,9 @@ port draws from Philox4x32-10 under per-chain counters.  Checked here:
 - moments, a KS test and correlations between chains, fields and
   iterations at 1e6 numbers;
 - the packing refuses what would overflow it;
-- ``IterationDraws.draw`` keeps its fields' shapes and dtypes.
+- ``IterationDraws.draw`` keeps its fields' shapes and dtypes;
+- the kernel's packing (aligned bases, contiguous views, the cache) and
+  the SASS count behind its FP64 floor, on a made-up listing.
 """
 
 import math
@@ -245,3 +247,161 @@ def test_run_cycle_refuses_another_chains_key():
                              DrawKey.of(1, 0, 4, 6, "cpu"), 0)
     assert torch.isfinite(state.field).all()
     assert rec["log_scale"].shape == (1, 2)
+
+
+# --- the kernel's packing (ops/draws.py:packing, views), checked on the CPU --
+
+# the layouts the card tests draw: the main path's fields with the sweep
+# normals at 20,001 sites (200,010 numbers a chain, not a multiple of 4),
+# every field at 0, 1, 3, 5 and 7 numbers a chain, and the small LAYOUT
+PACK_LAYOUTS = {
+    "small": LAYOUT,
+    "sweep-20001": G.IterationDraws.layout(
+        G.UpdateConfig(n_iterations=1, shape_names=("log_range",),
+                       locs_cols=tuple(range(14))), 20_001, 14),
+    **{f"every-{k}": {name: (k,) for name in draws.FIELDS}
+       for k in (0, 1, 3, 5, 7)},
+}
+
+
+@pytest.mark.parametrize("C", [1, 3, 97])
+@pytest.mark.parametrize("name", PACK_LAYOUTS)
+def test_packing_bases_are_aligned_and_fields_apart(name, C):
+    """Every field's base is a multiple of 4 numbers; the fields lie in
+    layout order, neither overlap nor leave the buffer; the launcher's
+    arrays hold the same bases, counts, ids and kinds."""
+    layout = PACK_LAYOUTS[name]
+    pk = draws.packing(layout, C)
+    F, base, count, fid, kind = pk.args
+    assert F == len(layout) == len(pk.fields)
+    end = 0
+    for j, ((field, at, _, _), (lname, shape)) in enumerate(
+            zip(pk.fields, layout.items())):
+        n = math.prod(shape)
+        assert field == lname
+        assert at % 4 == 0 and at >= end
+        end = at + C * n
+        assert end <= pk.size
+        assert (base[j], count[j]) == (at, n)
+        assert (fid[j], kind[j]) == (
+            draws.FIELDS[field][0], draws.KIND_CODES[draws.FIELDS[field][1]])
+    assert end == pk.size
+
+
+@pytest.mark.parametrize("C", [1, 3, 97])
+@pytest.mark.parametrize("name", PACK_LAYOUTS)
+def test_packing_views_are_contiguous_chain_major(name, C):
+    """Each field is a contiguous [C, *shape] view of the one buffer from
+    its base, and writing every view covers each field's numbers once."""
+    layout = PACK_LAYOUTS[name]
+    pk = draws.packing(layout, C)
+    buf = torch.zeros(pk.size, dtype=torch.int32)
+    got = draws.views(buf, pk)
+    assert list(got) == list(layout)
+    for (field, at, _, _), (_, shape) in zip(pk.fields, layout.items()):
+        v = got[field]
+        assert v.shape == (C,) + tuple(shape) and v.is_contiguous()
+        assert v.storage_offset() == at
+        assert v.untyped_storage().data_ptr() == buf.untyped_storage(
+            ).data_ptr()
+        v += 1
+    assert int(buf.sum()) == C * sum(math.prod(s) for s in layout.values())
+    assert bool((buf <= 1).all())
+
+
+def test_packing_of_the_main_path_aligns_every_sweep_row():
+    """At the main path's 64,274 sites every sweep_z row starts on 4
+    numbers (16 bytes), so the kernel writes the rows as float4s."""
+    layout = G.IterationDraws.layout(
+        G.UpdateConfig(n_iterations=1, shape_names=("log_range",),
+                       locs_cols=tuple(range(14))), 64_274, 14)
+    for C in (3, 96):
+        (at,) = [f[1] for f in draws.packing(layout, C).fields
+                 if f[0] == "sweep_z"]
+        count = math.prod(layout["sweep_z"])
+        assert count % 4 == 0
+        assert all((at + c * count) % 4 == 0 for c in range(C))
+
+
+def test_packing_is_cached_per_layout_and_chain_count():
+    a = draws.packing(LAYOUT, 3)
+    assert draws.packing(dict(LAYOUT), 3) is a
+    assert draws.packing({k: list(v) for k, v in LAYOUT.items()}, 3) is a
+    b = draws.packing(LAYOUT, 4)
+    assert b is not a and b.size > a.size
+    w = draws.packing(LAYOUT, 3, words=True)
+    assert w is not a and w.size == a.size
+    assert list(w.args[4]) == [draws.KIND_CODES[draws.WORDS]] * len(LAYOUT)
+
+
+@pytest.mark.parametrize("bad", [{"z": (3,)}, {"sweep_z": (2**31,)},
+                                 {"anc_u": (1,), "sweep_z": (2**16, 2**15)}])
+def test_packing_refuses_what_the_kernel_does_not_take(bad):
+    with pytest.raises(ValueError):
+        draws.packing(bad, 2)
+
+
+def test_the_twin_draws_empty_fields_and_no_chains():
+    """A field of 0 numbers a chain, and 0 chains, give empty fields of
+    the right shapes (as the kernel's views are)."""
+    empty = {name: (0,) for name in draws.FIELDS}
+    got = _draw(torch.arange(3), layout=empty)
+    assert all(v.shape == (3, 0) for v in got.values())
+    none = _draw(torch.arange(0), layout=LAYOUT)
+    assert all(none[k].shape == (0,) + LAYOUT[k] for k in LAYOUT)
+    assert draws.chain_words(SEED, 7, torch.arange(2), 3, "anc_u",
+                             0).shape == (2, 0)
+
+
+# --- the SASS count behind the kernel's FP64 floor (experiments/draws_bench)
+
+def _listing(calls, body):
+    """A cuobjdump -sass listing of chain_draws_kernel<calls> whose
+    instructions are ``body`` [(address, text)]."""
+    lines = [f"\t\tFunction : _ZN4anon18chain_draws_kernelILi{calls}EEEvPf"]
+    lines += [f"        /*{a:04x}*/                   {t} ;"
+              f"        /* 0x0000000000000000 */" for a, t in body]
+    return "\n" + "\n".join(lines) + "\n"
+
+
+# a dispatch, another kind's tile, then one call of normals: a slow path
+# reached by a CALL, a vector store and the scalar stores it jumps over,
+# and the out-of-line slow path itself
+ONE_CALL = [
+    (0x00, "IMAD R0, R1, R2, RZ"), (0x10, "@P0 BRA 0x40"),
+    (0x20, "STG.E.128 desc[UR6][R2.64], R4"), (0x30, "EXIT"),
+    (0x40, "DMUL R0, R2, R4"), (0x50, "MUFU.RSQ64H R1, R3"),
+    (0x60, "@!P0 BRA 0x90"), (0x70, "MOV R6, 0x80"),
+    (0x80, "CALL.REL.NOINC 0x110"), (0x90, "DFMA R0, R2, R4, R6"),
+    (0xa0, "MUFU.RSQ64H R1, R5"), (0xb0, "I2F.F64 R2, R3"),
+    (0xc0, "@!P1 BRA P2, 0xf0"), (0xd0, "STG.E desc[UR6][R2.64], R4"),
+    (0xe0, "EXIT"), (0xf0, "STG.E.128 desc[UR6][R2.64], R4"),
+    (0x100, "EXIT"), (0x110, "DADD R0, R2, R4"),
+    (0x120, "RET.REL.NODEC R6 0x0"),
+]
+
+
+def test_sass_count_follows_the_tile_of_normals():
+    """The tile is the straight code of one call of normals (not the
+    dispatch nor the other kind's store), less the slow path a CALL is
+    reached by and the scalar stores the vector store jumps over."""
+    from nngp_tpu_torch.experiments import draws_bench
+
+    got = draws_bench.sass_counts(_listing(1, ONE_CALL), 1)
+    assert got == {"f64": 2, "f64_conv": 1, "mufu64": 2, "total": 9,
+                   "skipped": 4, "tile": 0x40}
+    f64_ms, issue_ms = draws_bench.floors(10**6, got, 1000.0)
+    assert f64_ms == pytest.approx(1e3 * 3e6 / (132 * 64 * 1e9))
+    assert issue_ms == pytest.approx(1e3 * 9e6 / (132 * 128 * 1e9))
+
+
+@pytest.mark.parametrize("calls", [1, 4])
+def test_sass_count_refuses_a_listing_without_the_tile(calls):
+    """No straight tile of 2 x calls MUFU.RSQ64H and calls vector stores
+    (a loop, or another kernel): the count raises."""
+    from nngp_tpu_torch.experiments import draws_bench
+
+    looped = [(a, "@P3 BRA 0x40" if a == 0x100 else t) for a, t in ONE_CALL]
+    with pytest.raises(RuntimeError):
+        draws_bench.sass_counts(_listing(calls, looped if calls == 1
+                                         else ONE_CALL), calls)
