@@ -183,9 +183,10 @@ with a nonzero exit and no "ok" line:
                   the graph's bytes on the card and the peak allocation;
                   then the sweep kernel against its plain version on that
                   plan at 3 chains (tolerance and times as in phase 5) and
-                  a profile of 5 iterations (each block's device span and
-                  host time, the level solve's share, the card's idle
-                  share; experiments/sweep_bench.py)
+                  a profile of 5 iterations under the program's spans
+                  (each span's host time, the level solve's share of the
+                  traced iterations, the card's idle share and its idle
+                  time by span; experiments/sweep_bench.py)
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's and chain_draws' launches from zero and needs
@@ -1948,9 +1949,9 @@ def big_n(dev, td, n, halo_plan=False):
     the D = 8 plan (bigN's ``--halo-plan``); its JSON line, appended to
     ``td``/bigN.jsonl;
     then the kernel against its plain twin on that plan (3 chains) and a
-    profile of 5 iterations (sweep_bench.profile_iteration: each block's
-    device span and host time, the card's idle share).  Returns (entry,
-    kernel checks and times, profile)."""
+    profile of 5 iterations (sweep_bench.profile_iteration: each span's
+    host time, the card's idle share and its idle time by span).  Returns
+    (entry, kernel checks and times, profile)."""
 
     from nngp_tpu_torch.experiments import _common, bigN, sweep_bench
 
@@ -2345,9 +2346,10 @@ def main():
           f"allocated {big['max_memory_allocated'] / 2**30:.2f} GiB; "
           f"{bk['shape']}: kernel {bk[3]['ms']:.4f} ms, plain "
           f"{bk[3]['plain_ms']:.3f} ms; profile: bare loop "
-          f"{prof['loop_ms']:.2f} ms/iteration, level solve "
-          f"{solve['host_ms']:.2f} ms host ({solve['device_ms']:.2f} device) "
-          f"= {100 * solve['host_ms'] / prof['loop_ms']:.1f} %, card idle "
+          f"{prof['loop_ms']:.2f} ms/iteration, traced "
+          f"{prof['traced_ms']:.2f}, level solve {solve['host_ms']:.2f} ms "
+          f"host = {100 * solve['host_ms'] / prof['traced_ms']:.1f} %, "
+          "card idle "
           + ("not measured" if prof["idle_share"] is None
              else f"{100 * prof['idle_share']:.1f} %"), t)
     print("  " + json.dumps(prof), flush=True)

@@ -39,6 +39,7 @@ from nngp_tpu_torch.preprocess.dedupe import ObsMaps, dedupe_and_match
 from nngp_tpu_torch.preprocess.design import Design, build_design
 from nngp_tpu_torch.preprocess.graph import VecchiaGraph, build_graph
 from nngp_tpu_torch.preprocess.ordering import reorder_locations
+from nngp_tpu_torch.tracing import span
 from nngp_tpu_torch.utils import native
 
 
@@ -170,10 +171,8 @@ def initialize(
     timings = {}
 
     def perm_fn(L):
-        t = time.perf_counter()
-        perm = reorder_locations(L, reordering, lonlat=lonlat, rng=rng)
-        timings["ordering_s"] = time.perf_counter() - t
-        return perm
+        with span("ordering", timings):
+            return reorder_locations(L, reordering, lonlat=lonlat, rng=rng)
 
     maps = dedupe_and_match(observed_locs, perm_fn=perm_fn)
     graph, NN = build_graph(maps, m=m, covfun=stationary_covfun, dtype=dtype,
@@ -196,77 +195,78 @@ def initialize(
 
     # --- per-chain overdispersed initial states (ref :143-209), the same
     # recipe and random stream as nngp_tpu.initialize ---
-    t = time.perf_counter()
-    n_obs = len(observed_field)
-    if p > 0:
-        X1 = np.concatenate([np.ones((n_obs, 1)), design.X], axis=1)
-    else:
-        X1 = np.ones((n_obs, 1))
-    coef, *_ = np.linalg.lstsq(X1, observed_field, rcond=None)
-    resid = observed_field - X1 @ coef
-    dof = max(n_obs - X1.shape[1], 1)
-    sigma2_hat = float(resid @ resid) / dof
-    vcov = sigma2_hat * np.linalg.inv(X1.T @ X1)
-    vcov_chol = np.linalg.cholesky(vcov)
-    var_resid = float(np.var(resid, ddof=1))
+    with span("prior_fields", timings):
+        n_obs = len(observed_field)
+        if p > 0:
+            X1 = np.concatenate([np.ones((n_obs, 1)), design.X], axis=1)
+        else:
+            X1 = np.ones((n_obs, 1))
+        coef, *_ = np.linalg.lstsq(X1, observed_field, rcond=None)
+        resid = observed_field - X1 @ coef
+        dof = max(n_obs - X1.shape[1], 1)
+        sigma2_hat = float(resid @ resid) / dof
+        vcov = sigma2_hat * np.linalg.inv(X1.T @ X1)
+        vcov_chol = np.linalg.cholesky(vcov)
+        var_resid = float(np.var(resid, ddof=1))
 
-    # shape inits: log(max kernel-coordinate distance among the first 100
-    # reordered locs) - log U{20..200} per range parameter (ref :152-161)
-    locs100 = maps.locs[: min(100, n)]
-    kc100 = np.asarray(graph.kernel_coords, dtype=np.float64)[: min(100, n)]
+        # shape inits: log(max kernel-coordinate distance among the first
+        # 100 reordered locs) - log U{20..200} per range parameter
+        # (ref :152-161)
+        locs100 = maps.locs[: min(100, n)]
+        kc100 = np.asarray(graph.kernel_coords,
+                           dtype=np.float64)[: min(100, n)]
 
-    def _maxdist(cols):
-        sub = kc100 if cols is None else locs100[:, cols]
-        if sub.ndim == 1:
-            sub = sub[:, None]
-        d = np.sqrt(((sub[:, None] - sub[None]) ** 2).sum(-1))
-        return d.max()
+        def _maxdist(cols):
+            sub = kc100 if cols is None else locs100[:, cols]
+            if sub.ndim == 1:
+                sub = sub[:, None]
+            d = np.sqrt(((sub[:, None] - sub[None]) ** 2).sum(-1))
+            return d.max()
 
-    def _draw_range(cols):
-        return np.log(_maxdist(cols)) - np.log(rng.integers(20, 201))
+        def _draw_range(cols):
+            return np.log(_maxdist(cols)) - np.log(rng.integers(20, 201))
 
-    from nngp_tpu_torch.ops.numpy_ref import (
-        np_shape_transform,
-        np_solve_L,
-        np_vecchia_linv,
-    )
+        from nngp_tpu_torch.ops.numpy_ref import (
+            np_shape_transform,
+            np_solve_L,
+            np_vecchia_linv,
+        )
 
-    coords_np = np.asarray(graph.kernel_coords, dtype=np.float64)
-    d_am = 1 + len(names)
-    chains = []
-    for _ in range(n_chains):
-        shape0 = []
-        for nm in names:
-            if nm.startswith("qlogis"):
-                shape0.append(rng.normal())
-            elif stationary_covfun.endswith("scaledim"):
-                shape0.append(_draw_range([len(shape0)]))
-            elif stationary_covfun.endswith("spacetime"):
-                if len(shape0) == 0:
-                    shape0.append(_draw_range(list(range(n_dims - 1))))
+        coords_np = np.asarray(graph.kernel_coords, dtype=np.float64)
+        d_am = 1 + len(names)
+        chains = []
+        for _ in range(n_chains):
+            shape0 = []
+            for nm in names:
+                if nm.startswith("qlogis"):
+                    shape0.append(rng.normal())
+                elif stationary_covfun.endswith("scaledim"):
+                    shape0.append(_draw_range([len(shape0)]))
+                elif stationary_covfun.endswith("spacetime"):
+                    if len(shape0) == 0:
+                        shape0.append(_draw_range(list(range(n_dims - 1))))
+                    else:
+                        shape0.append(_draw_range([n_dims - 1]))
                 else:
-                    shape0.append(_draw_range([n_dims - 1]))
-            else:
-                shape0.append(_draw_range(None))
-        shape0 = np.array(shape0)
-        perturb = vcov_chol @ rng.normal(size=X1.shape[1])
-        beta_0 = coef[0] + perturb[0]
-        beta = coef[1:] + perturb[1:]
-        log_scale = float(np.log(rng.beta(10, 10) * var_resid))
-        log_noise = float(np.log(rng.beta(10, 10) * var_resid))
-        # field ~ prior (ref :196-208): beta_0 + sqrt(scale) L^-1 z
-        natural = np_shape_transform(names, shape0)
-        linv = np_vecchia_linv(coords_np, NN, stationary_covfun, natural)
-        z = rng.normal(size=n)
-        fld = beta_0 + np.sqrt(np.exp(log_scale)) * np_solve_L(linv, NN, z)
-        chains.append(dict(
-            beta_0=beta_0, beta=beta, log_scale=log_scale,
-            log_noise_variance=log_noise, shape=shape0, field=fld,
-            tk_ancillary=-2.0, tk_sufficient=-2.0,
-            prop_mean=np.zeros(d_am), prop_m2=np.zeros((d_am, d_am)),
-            prop_count=0.0,
-        ))
-    timings["prior_fields_s"] = time.perf_counter() - t
+                    shape0.append(_draw_range(None))
+            shape0 = np.array(shape0)
+            perturb = vcov_chol @ rng.normal(size=X1.shape[1])
+            beta_0 = coef[0] + perturb[0]
+            beta = coef[1:] + perturb[1:]
+            log_scale = float(np.log(rng.beta(10, 10) * var_resid))
+            log_noise = float(np.log(rng.beta(10, 10) * var_resid))
+            # field ~ prior (ref :196-208): beta_0 + sqrt(scale) L^-1 z
+            natural = np_shape_transform(names, shape0)
+            linv = np_vecchia_linv(coords_np, NN, stationary_covfun, natural)
+            z = rng.normal(size=n)
+            fld = beta_0 + np.sqrt(np.exp(log_scale)) * np_solve_L(linv, NN, z)
+            chains.append(dict(
+                beta_0=beta_0, beta=beta, log_scale=log_scale,
+                log_noise_variance=log_noise, shape=shape0, field=fld,
+                tk_ancillary=-2.0, tk_sufficient=-2.0,
+                prop_mean=np.zeros(d_am), prop_m2=np.zeros((d_am, d_am)),
+                prop_count=0.0,
+            ))
     stacked = {
         k: torch.as_tensor(np.stack([np.asarray(c[k], dtype=dtype)
                                      for c in chains]), device=device)
@@ -293,9 +293,8 @@ def initialize(
             }
         )
 
-    t = time.perf_counter()
-    graph_d = graph.to(device)
-    timings["to_device_s"] = time.perf_counter() - t
+    with span("to_device", timings):
+        graph_d = graph.to(device)
     mc = MCMC(
         locs=maps.locs,
         observed_locs=observed_locs,
@@ -449,7 +448,12 @@ def run(
     only the order in which the cross-rank sums add.
     ``field_record_columns`` is refused there.  Only the rank holding chain
     0 (and sites part 0) prints and writes ``plot_trace``, ``log_jsonl``
-    and ``save_name``."""
+    and ``save_name``.
+
+    Each cycle runs inside the host span ``cycle`` (``tracing.py``), with
+    ``iterations`` around the enqueue of its iterations, then
+    ``records_to_host``, ``records_append`` and ``diagnostics``; inside
+    ``tracing.record()`` they are kept on torch.profiler's clock."""
     _full_f32_matmuls()
     lo, halo = 0, False
     if mesh is not None:
@@ -499,64 +503,70 @@ def run(
             print(f"cycle = {cycle}")
         t_cycle = time.time()
         cycle_start = mc.iterations
-        states, recs = cycle_fn(mc.states,
-                                _cycle_key(mc, cycle_start),
-                                cycle_start, saved_slots=slots)
-        mc.states = states
-        recs = {k: v.cpu().numpy() for k, v in recs.items()}
-        for i, rec in enumerate(mc.records):
-            for k in ("beta_0", "beta", "log_scale", "log_noise_variance",
-                      "shape", "field"):
-                if rec[k] is not None:
-                    rec[k] = np.concatenate([rec[k], recs[k][:, i]])
-            rec["saved_field"] = np.concatenate(
-                [rec["saved_field"], cycle_start + saved])
-            rec["iterations"].append((cycle_start + T,
-                                      time.time() - mc.t_begin))
+        with span("cycle", index=cycle_start):
+            with span("iterations"):
+                states, recs = cycle_fn(mc.states,
+                                        _cycle_key(mc, cycle_start),
+                                        cycle_start, saved_slots=slots)
+            mc.states = states
+            with span("records_to_host"):
+                recs = {k: v.cpu().numpy() for k, v in recs.items()}
+            with span("records_append"):
+                for i, rec in enumerate(mc.records):
+                    for k in ("beta_0", "beta", "log_scale",
+                              "log_noise_variance", "shape", "field"):
+                        if rec[k] is not None:
+                            rec[k] = np.concatenate([rec[k], recs[k][:, i]])
+                    rec["saved_field"] = np.concatenate(
+                        [rec["saved_field"], cycle_start + saved])
+                    rec["iterations"].append((cycle_start + T,
+                                              time.time() - mc.t_begin))
 
-        if writes and plot_trace is not None:
-            from nngp_tpu_torch.diagnostics.plots import (
-                raw_chains_plots_beta,
-                raw_chains_plots_covparms,
-            )
+            if writes and plot_trace is not None:
+                from nngp_tpu_torch.diagnostics.plots import (
+                    raw_chains_plots_beta,
+                    raw_chains_plots_covparms,
+                )
 
-            os.makedirs(plot_trace, exist_ok=True)
-            raw_chains_plots_covparms(
-                mc.records, burn_in,
-                path=os.path.join(plot_trace, "trace_covparms.png"))
-            if plot_beta:
-                raw_chains_plots_beta(
+                os.makedirs(plot_trace, exist_ok=True)
+                raw_chains_plots_covparms(
                     mc.records, burn_in,
-                    path=os.path.join(plot_trace, "trace_beta.png"))
+                    path=os.path.join(plot_trace, "trace_covparms.png"))
+                if plot_beta:
+                    raw_chains_plots_beta(
+                        mc.records, burn_in,
+                        path=os.path.join(plot_trace, "trace_beta.png"))
 
-        # diagnostics + early stop (mcmc_nngp_run.R:36-46)
-        grb = None
-        if compute_diagnostics and mc.n_chains >= 2:
-            grb = _GRB(mc.records, burn_in)
-            mc.diagnostics["Gelman_Rubin_Brooks"].append(grb)
-            mc.diagnostics["ESS"].append(_ESS(mc.records, burn_in))
-            if verbose:
-                with np.printoptions(precision=3, suppress=True):
-                    print("Gelman-Rubin-Brooks R-hat : ")
-                    print(dict(zip(grb["names"], np.round(grb["R_hat"], 3))))
-        if writes and log_jsonl is not None:
-            entry = {
-                "cycle": cycle,
-                "iteration": mc.iterations,
-                "elapsed_s": round(time.time() - mc.t_begin, 3),
-                "cycle_s": round(time.time() - t_cycle, 3),
-            }
-            if grb is not None:
-                entry["R_hat"] = dict(
-                    zip(grb["names"], np.round(grb["R_hat"], 4).tolist()))
-            with open(log_jsonl, "a") as f:
-                f.write(json.dumps(entry) + "\n")
-        if writes and save_name:
-            save(mc, save_name)
-        if grb is not None and (
-                grb["R_hat"][0] < Gelman_Rubin_Brooks_stop[0]
-                or np.all(grb["R_hat"][1:] < Gelman_Rubin_Brooks_stop[1])):
-            break
+            # diagnostics + early stop (mcmc_nngp_run.R:36-46)
+            grb = None
+            if compute_diagnostics and mc.n_chains >= 2:
+                with span("diagnostics"):
+                    grb = _GRB(mc.records, burn_in)
+                    mc.diagnostics["Gelman_Rubin_Brooks"].append(grb)
+                    mc.diagnostics["ESS"].append(_ESS(mc.records, burn_in))
+                if verbose:
+                    with np.printoptions(precision=3, suppress=True):
+                        print("Gelman-Rubin-Brooks R-hat : ")
+                        print(dict(zip(grb["names"],
+                                       np.round(grb["R_hat"], 3))))
+            if writes and log_jsonl is not None:
+                entry = {
+                    "cycle": cycle,
+                    "iteration": mc.iterations,
+                    "elapsed_s": round(time.time() - mc.t_begin, 3),
+                    "cycle_s": round(time.time() - t_cycle, 3),
+                }
+                if grb is not None:
+                    entry["R_hat"] = dict(
+                        zip(grb["names"], np.round(grb["R_hat"], 4).tolist()))
+                with open(log_jsonl, "a") as f:
+                    f.write(json.dumps(entry) + "\n")
+            if writes and save_name:
+                save(mc, save_name)
+            if grb is not None and (
+                    grb["R_hat"][0] < Gelman_Rubin_Brooks_stop[0]
+                    or np.all(grb["R_hat"][1:] < Gelman_Rubin_Brooks_stop[1])):
+                break
     return mc
 
 

@@ -14,11 +14,12 @@ time of the Q layout gather that feeds it, the time of its grid barriers
 alone, the plain twin's time (3 chains only) and the least time the card
 could take for the function's bytes and operations (``sweep_bound``).
 
-  --profile   one iteration at each CHAINS:K (default 3:1; the states
-              tiled to CHAINS chains, K ASIS pairs): the device span and
-              host time of each block (CUDA events around the functions of
-              models/gaussian.py), then torch.profiler over 5 iterations
-              for the device time, the launches and the card's idle share
+  --profile   5 iterations at each CHAINS:K (default 3:1; the states
+              tiled to CHAINS chains, K ASIS pairs) under the program's
+              spans (nngp_tpu_torch/tracing.py) and torch.profiler: each
+              span's host and self time and calls an iteration, the
+              card's idle share and its idle time by span, the device
+              time and the launches
   --family    the covariance family of the fit (default exponential_sphere;
               matern_sphere for the Matérn iteration)
   --factor    the factor build alone (ops/vecchia.py:vecchia_linv, one
@@ -33,6 +34,7 @@ Raises without a CUDA card.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import time
@@ -144,38 +146,26 @@ def time_case(case, plain=False):
     return out
 
 
-BLOCKS = ("_ancillary_step", "vecchia_linv", "level_solve",
-          "_sufficient_step", "_beta_step", "_chromatic_sweeps",
-          "sweep_inputs", "chromatic_sweeps", "_noise_steps")
-
-
-def _iterations(mc, T, carry=None, seed=0, chains=None, steps=1):
-    """T Gibbs iterations of ``mc``'s chains (tiled to ``chains``) with
-    ``steps`` ASIS pairs from ``carry`` (None: the fit's states); returns
-    the carry, synchronised."""
+def _cycle(mc, T, state=None, seed=0, chains=None, steps=1):
+    """One ``run_cycle`` of T Gibbs iterations with ``steps`` ASIS pairs
+    from ``state`` (None: ``mc``'s states tiled to ``chains``); returns the
+    state, synchronised."""
     from nngp_tpu_torch.models import gaussian as G
-    from nngp_tpu_torch.ops.covariance import shape_transform
     from nngp_tpu_torch.ops.draws import DrawKey
-    from nngp_tpu_torch.ops.vecchia import vecchia_linv
 
-    st = mc.states if chains is None else tile_states(mc.states, chains)
+    if state is None:
+        state = mc.states if chains is None else tile_states(mc.states,
+                                                             chains)
     cfg = G.UpdateConfig(
         n_iterations=T,
         shape_names=tuple(mc.space_time_model["covfun"]["shape_params"]),
         locs_cols=tuple(int(c) for c in mc.design.locs_cols),
         covparams_steps=steps)
-    if carry is None:
-        zero = torch.zeros_like(st.log_scale)
-        carry = (st, vecchia_linv(mc.graph, shape_transform(cfg.shape_names,
-                                                            st.shape)),
-                 zero, zero)
-    key = DrawKey.of(seed, 0, 0, st.field.shape[0], st.field.device)
-    for it in range(T):
-        draws = G.IterationDraws.draw(key, it, cfg, mc.graph.n,
-                                      st.beta.shape[1])
-        carry = G.gibbs_iteration(mc.graph, mc.data, cfg, carry, it, 0, draws)
-    torch.cuda.synchronize()
-    return carry
+    key = DrawKey.of(seed, 0, 0, state.field.shape[0], state.field.device)
+    state, _ = G.run_cycle(mc.graph, mc.data, cfg, state, key, 0)
+    if state.field.is_cuda:
+        torch.cuda.synchronize()
+    return state
 
 
 def time_factor(mc, C):
@@ -197,71 +187,78 @@ def time_factor(mc, C):
             "rows_sha256": digest[:16]}
 
 
-def profile_iteration(mc, T=5, chains=None, steps=1):
-    """Per block of models/gaussian.py: device span (CUDA events) and host
-    time, ms per iteration over T iterations of ``mc``'s states tiled to
-    ``chains`` with ``steps`` ASIS pairs; the bare loop's ms per iteration;
-    torch.profiler's device time, launches and idle share."""
-    from nngp_tpu_torch.models import gaussian as G
+def _device_intervals(prof):
+    """(name, start_ns, end_ns) of each device operation a finished
+    torch.profiler recorded, on the clock of ``tracing``'s spans."""
+    from torch.autograd import DeviceType
 
-    run = functools.partial(_iterations, mc, chains=chains, steps=steps)
-    carry = run(3)                                  # warm
+    out = []
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            start = int(e.start_ns())
+            out.append((e.name(), start, start + int(e.duration_ns())))
+    return out
+
+
+def profile_iteration(mc, T=5, chains=None, steps=1):
+    """T iterations of ``mc``'s states tiled to ``chains`` with ``steps``
+    ASIS pairs, in one ``run_cycle``: the bare loop's ms an iteration, then
+    the same under ``tracing.record()`` (and torch.profiler on a card).
+    Per iteration: each of the program's spans by name
+    (``models/gaussian.py``'s blocks, ``factor``, ``level_solve``, ...)
+    with its host ms, its self ms (less its children's) and its calls; the
+    traced stretch's ms; on a card, the share of that stretch in which no
+    device operation ran, its idle ms by the innermost span open over it
+    (``tracing.idle_by_span``), the device time, the launches and the
+    largest kernels."""
+    from nngp_tpu_torch import tracing
+
+    cycle = functools.partial(_cycle, mc, chains=chains, steps=steps)
+    st = cycle(3)                                   # warm
     t = time.perf_counter()
-    carry = run(T, carry, seed=1)
+    st = cycle(T, st, seed=1)
     loop_ms = 1e3 * (time.perf_counter() - t) / T
 
-    spans = {name: [] for name in BLOCKS}
-    saved = {name: getattr(G, name) for name in spans}
+    cuda = st.field.is_cuda
+    if cuda:
+        from torch.profiler import ProfilerActivity, profile
 
-    def timed(name, fn):
-        def wrapper(*a, **k):
-            ev = (torch.cuda.Event(enable_timing=True),
-                  torch.cuda.Event(enable_timing=True))
-            t0 = time.perf_counter()
-            ev[0].record()
-            out = fn(*a, **k)
-            ev[1].record()
-            spans[name].append((ev, time.perf_counter() - t0))
-            return out
-        return wrapper
-
-    try:
-        for name, fn in saved.items():
-            setattr(G, name, timed(name, fn))
-        carry = run(T, carry, seed=2)
-    finally:
-        for name, fn in saved.items():
-            setattr(G, name, fn)
-    blocks = {name: {"device_ms": sum(e[0].elapsed_time(e[1])
-                                      for e, _ in v) / T,
-                     "host_ms": 1e3 * sum(h for _, h in v) / T,
-                     "calls": len(v) / T}
-              for name, v in spans.items()}
-
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run(T, carry, seed=3)
-    busy_us, launches, by_name = 0.0, 0, {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.elapsed_us()
-            busy_us += us
-            launches += 1
-            key = e.name[:80]
-            by_name[key] = by_name.get(key, 0.0) + us
+        prof = profile(activities=[ProfilerActivity.CUDA])
+    else:
+        prof = contextlib.nullcontext()
+    with prof, tracing.record() as spans:
+        with tracing.span("cycle"):
+            st = cycle(T, st, seed=2)
+    blocks = {}
+    for i, s in enumerate(spans[1:], 1):
+        b = blocks.setdefault(s.name, {"host_ms": 0.0, "self_ms": 0.0,
+                                       "calls": 0})
+        b["host_ms"] += 1e3 * s.seconds / T
+        b["self_ms"] += 1e3 * tracing.self_seconds(spans, i) / T
+        b["calls"] += 1
+    for b in blocks.values():
+        b["calls"] /= T
+    out = {"family": mc.graph.covfun, "chains": st.field.shape[0],
+           "covparams_steps": steps, "loop_ms": loop_ms,
+           "traced_ms": 1e3 * spans[0].seconds / T, "blocks": blocks,
+           "idle_share": None, "idle_ms": None, "profiler_device_ms": None,
+           "launches_per_iteration": None, "top_kernels_ms": None}
+    if not cuda:
+        return out
+    ops = _device_intervals(prof)
+    idle = tracing.idle_by_span(spans, [(a, b) for _, a, b in ops], 0)
+    by_name = {}
+    for name, a, b in ops:
+        by_name[name[:80]] = by_name.get(name[:80], 0) + b - a
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    device_ms = busy_us / 1e3 / T if launches else None
-    return {"family": mc.graph.covfun, "chains": carry[0].field.shape[0],
-            "covparams_steps": steps, "loop_ms": loop_ms,
-            "blocks": blocks,
-            "profiler_device_ms": device_ms,
-            "launches_per_iteration": launches / T,
-            "idle_share": (None if device_ms is None
-                           else max(0.0, 1.0 - device_ms / loop_ms)),
-            "top_kernels_ms": {k: v / 1e3 / T for k, v in top}}
+    out.update(
+        idle_share=sum(idle.values()) / spans[0].seconds,
+        idle_ms={k: 1e3 * v / T for k, v in
+                 sorted(idle.items(), key=lambda kv: -kv[1])},
+        profiler_device_ms=sum(by_name.values()) * 1e-6 / T,
+        launches_per_iteration=len(ops) / T,
+        top_kernels_ms={k: v * 1e-6 / T for k, v in top})
+    return out
 
 
 def main(argv=None):

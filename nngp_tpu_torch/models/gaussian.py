@@ -46,6 +46,7 @@ from nngp_tpu_torch.ops.vecchia import (
     sum64,
     vecchia_linv,
 )
+from nngp_tpu_torch.tracing import span
 
 
 def _to(obj, device):
@@ -480,22 +481,27 @@ def gibbs_iteration(graph, data, cfg: UpdateConfig, carry, it: int,
     C = _proposal_chol(state)
     for rep in range(max(1, cfg.covparams_steps)):
         if cfg.ancillary:
-            state, linv, a = _ancillary_step(graph, data, cfg, state, linv, mu,
-                                             draws.anc_z[rep], draws.anc_u[rep],
-                                             C=C)
+            with span("ancillary"):
+                state, linv, a = _ancillary_step(
+                    graph, data, cfg, state, linv, mu, draws.anc_z[rep],
+                    draws.anc_u[rep], C=C)
             acc_anc = acc_anc + a
-        state, linv, a = _sufficient_step(graph, data, cfg, state, linv,
-                                          draws.suf_z[rep], draws.suf_u[rep],
-                                          C=C)
+        with span("sufficient"):
+            state, linv, a = _sufficient_step(
+                graph, data, cfg, state, linv, draws.suf_z[rep],
+                draws.suf_u[rep], C=C)
         acc_suf = acc_suf + a
-    state, acc_anc, acc_suf = _adapt_and_am(cfg, state, acc_anc, acc_suf, it,
-                                            iter_start, draws.adapt_z)
-
-    state = _beta_step(graph, data, cfg, state, linv, draws)
+    with span("adapt"):
+        state, acc_anc, acc_suf = _adapt_and_am(cfg, state, acc_anc, acc_suf,
+                                                it, iter_start, draws.adapt_z)
+    with span("beta"):
+        state = _beta_step(graph, data, cfg, state, linv, draws)
     mu = _mu_obs(data, state, graph)
-    state = _chromatic_sweeps(graph, data, state, linv, mu, draws.sweep_z)
-    state = _noise_steps(graph, data, cfg, state, mu, draws.noise_z,
-                         draws.noise_u)
+    with span("sweeps"):
+        state = _chromatic_sweeps(graph, data, state, linv, mu, draws.sweep_z)
+    with span("noise"):
+        state = _noise_steps(graph, data, cfg, state, mu, draws.noise_z,
+                             draws.noise_u)
     return (state, linv, acc_anc, acc_suf)
 
 
@@ -570,13 +576,17 @@ def run_cycle(graph, data, cfg: UpdateConfig, state: ChainState,
     zero = torch.zeros_like(state.log_scale)
     carry = (state, linv, zero, zero)
     for it in range(T):
-        draws = IterationDraws.draw(key, it, cfg, n, p, dt)
-        carry = iteration(graph, data, cfg, carry, it, iter_start, draws)
-        state = carry[0]
-        for k in RECORD_KEYS:
-            rec[k][it] = getattr(state, k)
-        slot = int(saved_slots[it])
-        if slot < n_saved:
-            fbuf[slot] = state.field if cols is None else state.field[:, cols]
+        with span("iteration", index=it):
+            with span("draws"):
+                draws = IterationDraws.draw(key, it, cfg, n, p, dt)
+            carry = iteration(graph, data, cfg, carry, it, iter_start, draws)
+            state = carry[0]
+            with span("record"):
+                for k in RECORD_KEYS:
+                    rec[k][it] = getattr(state, k)
+                slot = int(saved_slots[it])
+                if slot < n_saved:
+                    fbuf[slot] = (state.field if cols is None
+                                  else state.field[:, cols])
     rec["field"] = fbuf
     return carry[0], rec

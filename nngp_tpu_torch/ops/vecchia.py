@@ -47,6 +47,7 @@ import torch
 from nngp_tpu_torch.ops import _build
 from nngp_tpu_torch.ops.covariance import (correlation_from_sqdist,
                                            require_supported)
+from nngp_tpu_torch.tracing import span
 
 
 def sum64(x: torch.Tensor, dim=-1) -> torch.Tensor:
@@ -332,14 +333,15 @@ def vecchia_linv(graph, natural_shape: torch.Tensor,
     build each float32 row in float64 and round it once.  float32 on a
     card is one ``factor_build`` launch (``vecchia_linv.launches`` counts
     them); the CPU, and float64 anywhere, run ``vecchia_linv_reference``."""
-    if natural_shape.device.type == "cuda" and (
-            natural_shape.dtype == graph.nn_dist2.dtype == torch.float32):
-        return factor_build_cuda(graph, natural_shape.contiguous(), rows)
-    d2g, mask = graph.nn_dist2, graph.nn_mask
-    if rows is not None:
-        d2g, mask = d2g[rows], mask[rows]
-    return vecchia_linv_reference(graph.covfun, d2g, mask, natural_shape,
-                                  graph.d_floor)
+    with span("factor"):
+        if natural_shape.device.type == "cuda" and (
+                natural_shape.dtype == graph.nn_dist2.dtype == torch.float32):
+            return factor_build_cuda(graph, natural_shape.contiguous(), rows)
+        d2g, mask = graph.nn_dist2, graph.nn_mask
+        if rows is not None:
+            d2g, mask = d2g[rows], mask[rows]
+        return vecchia_linv_reference(graph.covfun, d2g, mask, natural_shape,
+                                      graph.d_floor)
 
 
 vecchia_linv.launches = 0

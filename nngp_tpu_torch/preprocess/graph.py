@@ -16,7 +16,6 @@ lists, int64 for every other index tensor, float32 values.
 from __future__ import annotations
 
 import dataclasses
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,6 +33,7 @@ from nngp_tpu_torch.preprocess.coloring import (
 from nngp_tpu_torch.preprocess.dedupe import ObsMaps
 from nngp_tpu_torch.preprocess.neighbors import find_ordered_nn
 from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
+from nngp_tpu_torch.tracing import span
 
 # index tables kept int32 on the device (the sweep kernel reads the plan);
 # every other integer leaf becomes int64
@@ -237,29 +237,26 @@ def build_graph(
     timings = {} if timings is None else timings
     locs = obs_maps.locs
     lonlat = "sphere" in covfun
-    t = time.perf_counter()
-    if NN is None:
-        NN = find_ordered_nn(locs, m, lonlat=lonlat)
-    else:
-        NN = np.asarray(NN)
-        if NN.shape != (locs.shape[0], m + 1):
-            raise ValueError(f"NN shape {NN.shape} does not match "
-                             f"{locs.shape[0]} locations and m={m}")
-    timings["nn_search_s"] = time.perf_counter() - t
+    with span("nn_search", timings):
+        if NN is None:
+            NN = find_ordered_nn(locs, m, lonlat=lonlat)
+        else:
+            NN = np.asarray(NN)
+            if NN.shape != (locs.shape[0], m + 1):
+                raise ValueError(f"NN shape {NN.shape} does not match "
+                                 f"{locs.shape[0]} locations and m={m}")
     n = NN.shape[0]
-    t = time.perf_counter()
-    edges, pair_edge_id, pa, pb = moralized_edges(NN)
-    nbr_sites, nbr_edge, nbr_mask = site_neighbor_lists(n, edges)
-    colors = greedy_coloring(NN)
-    color_ptr, color_sites = color_csr(colors)
-    plan = sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge)
-    levels = dag_levels(NN)
-    level_segs = level_segments(levels, n_sentinel=n)
-    timings["coloring_s"] = time.perf_counter() - t
-    t = time.perf_counter()
-    coords = lonlat_to_xyz(locs) if lonlat else locs
-    nn_dist2 = nn_group_sqdist(coords, NN, covfun, dtype=dtype)
-    timings["nn_dist2_s"] = time.perf_counter() - t
+    with span("coloring", timings):
+        edges, pair_edge_id, pa, pb = moralized_edges(NN)
+        nbr_sites, nbr_edge, nbr_mask = site_neighbor_lists(n, edges)
+        colors = greedy_coloring(NN)
+        color_ptr, color_sites = color_csr(colors)
+        plan = sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge)
+        levels = dag_levels(NN)
+        level_segs = level_segments(levels, n_sentinel=n)
+    with span("nn_dist2", timings):
+        coords = lonlat_to_xyz(locs) if lonlat else locs
+        nn_dist2 = nn_group_sqdist(coords, NN, covfun, dtype=dtype)
     g = VecchiaGraph(
         kernel_coords=np.asarray(coords, dtype=dtype),
         nn_dist2=nn_dist2,

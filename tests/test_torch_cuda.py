@@ -747,6 +747,49 @@ def test_resume_bit_identical_on_card(tmp_path):
 
 
 @pytest.mark.gpu
+def test_recording_spans_leaves_the_card_run_bit_identical():
+    """The same fit run with ``tracing.record()`` on and off: the spans
+    launch nothing and never synchronise, so the runs agree bit for bit."""
+    from nngp_tpu_torch import tracing
+
+    dev = _card()
+    a = nngp_tpu_torch.run(_mc(dev), covparams_steps=2, **RUN)
+    with tracing.record() as spans:
+        b = nngp_tpu_torch.run(_mc(dev), covparams_steps=2, **RUN)
+    assert sum(s.name == "level_solve" for s in spans) == 2 * 10
+    _assert_same_run(a, b)
+
+
+@pytest.mark.gpu
+def test_span_encloses_its_kernel_on_the_cards_clock():
+    """A kernel launched and waited for inside a span lies inside it on
+    torch.profiler's CUDA-only trace, within 0.1 ms: the spans and the
+    card's events share one clock."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from nngp_tpu_torch import tracing
+
+    _card()
+    torch.cuda._sleep(1000)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof, \
+            tracing.record() as spans:
+        with tracing.span("outer"):
+            with tracing.span("sleep"):
+                torch.cuda._sleep(4_000_000)       # ~2 ms of clock cycles
+                torch.cuda.synchronize()
+    ops = [e for e in prof.profiler.kineto_results.events()
+           if e.device_type() == DeviceType.CUDA]
+    assert len(ops) == 1                   # torch.cuda._sleep's spin kernel
+    start = ops[0].start_ns()
+    end = start + ops[0].duration_ns()
+    s = spans[1]
+    assert s.name == "sleep" and end - start > 500_000
+    assert s.start_ns - 100_000 <= start and end <= s.end_ns + 100_000
+
+
+@pytest.mark.gpu
 def test_one_rank_nccl_mesh_run_equals_run(tmp_path):
     """run(mc, mesh=...) on a one-rank NCCL chains mesh follows run(mc) on
     the card bit for bit (chip_smoke.py's small-parity problem, 2 chains)."""
