@@ -7,9 +7,10 @@ Phases, each printed with its result and time; any failure ends the run
 with a nonzero exit and no "ok" line:
 
   1. device       the card's name and power limit (nvidia-smi)
-  2. build        nvcc builds the five CUDA sources of csrc/ (factor_rows.cu
-                  as its three parts at the main path's m = 5; other m
-                  are built on first use), one nvcc each, all at once
+  2. build        nvcc builds the six CUDA sources of csrc/ (factor_rows.cu
+                  as its three parts and level_solve.cu at the main path's
+                  m = 5; other m are built on first use), one nvcc each,
+                  all at once
   3. small parity 3 Gibbs iterations of a 400-site problem on the card
                   against the same iterations on the CPU (whose path the
                   tests hold against nngp_tpu), same injected draws
@@ -44,7 +45,18 @@ with a nonzero exit and no "ok" line:
                   (experiments/draws_bench.py), beside the bound: bytes
                   written, or the SASS-counted float64 instructions at
                   132 SMs x 64 a clock at the card's highest SM clock
-  7. gather probes the four kernels of the gather microbenchmarks
+  7. level solve  the level solve kernel (csrc/level_solve.cu) on that
+                  graph at 3 and 96 chains (the states tiled, standard
+                  normal right-hand sides): within SOLVE_F64_TOL * max(1,
+                  |x|_inf) of its plain twin run in float64 on the card,
+                  bit for bit with the twin in float32 (which has the
+                  kernel's arithmetic on a card) and between two calls,
+                  one launch a call; median times of the kernel and of
+                  the twin, its
+                  device time back to back, beside the byte bound and the
+                  floor of its steps (the kernel on a path graph of as
+                  many one-site steps; experiments/sweep_bench.py)
+  8. gather probes the four kernels of the gather microbenchmarks
                   (nngp_tpu_torch/experiments: X1 gather_bench, X2
                   gather_probe, X3 gather_probe2) at the scripts' full
                   shapes, each against its plain PyTorch twin: the DSMEM
@@ -61,18 +73,18 @@ with a nonzero exit and no "ok" line:
                   (torch.gather/roll per stage, Tensor.scatter_, cuBLAS
                   FP32); then the three entry points, with each kernel's
                   launch count from that run
-  8. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
+  9. main path    run (1 cycle x 25 iterations, field thinning 0.5) and
                   estimate, with the kernel's launch count from that run
                   only; then 25 more iterations to time a warm cycle
-  9. predict      predict_field at 2,000 new sites in the data's lon/lat
+ 10. predict      predict_field at 2,000 new sites in the data's lon/lat
                   box (m = 10) and predict_fixed_effects on 14 covariate
                   columns, finite and of the right shapes; then the
                   conditional draws card against CPU on a 400-site fit,
                   same retained samples and normals, tolerance 1e-3 *
                   max(1, |w|_inf)
- 10. save/load    save the fit, load it on the card (states and records bit
+ 11. save/load    save the fit, load it on the card (states and records bit
                   for bit) and resume it for 25 iterations
- 11. examples     the six scripts of nngp_tpu_torch/examples/ through their
+ 12. examples     the six scripts of nngp_tpu_torch/examples/ through their
                   main() on the card: heavy_metals at full width (3 chains,
                   1 cycle x 25 iterations, saved), heavy_metals_analysis on
                   that fit (predict_field on the 0.25 deg US grid, no
@@ -81,11 +93,11 @@ with a nonzero exit and no "ok" line:
                   --quick; for each the sweep kernel's launches counted
                   from zero (one an iteration it ran), a finite summary,
                   seconds and ms per iteration
- 12. matern       initialize with matern_sphere at full width; the factor
+ 13. matern       initialize with matern_sphere at full width; the factor
                   build's proposal log-det difference at the Matérn probe's
                   (range, nu) against the float64 oracle (tolerance 1e-2),
                   then run 25 iterations and estimate the smoothness
- 13. factor rows  both entries of csrc/factor_rows.cu at the main path's
+ 14. factor rows  both entries of csrc/factor_rows.cu at the main path's
                   shapes (the Heavy-metals graph's states tiled to 3 and 96
                   chains, matern_sphere's at 3).  The K-input entry
                   factor_rows against its plain twin on the same K: max
@@ -110,24 +122,24 @@ with a nonzero exit and no "ok" line:
                   singular (300 sites, ranges at 2.5 median neighbour
                   distances, nu 0.54 and 0.98): log-determinant within
                   1e-5 of the float64 oracle, rows within 1e-4 of the twin
- 14. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
+ 15. diagnostics  the five diagnostics scripts of nngp_tpu_torch/
                   experiments by python -m, all at once, at cut sizes:
                   grb_guard, hm_mpsrf on the main path's fit, hm_crossval
                   (400 sites, 1 engine cycle of 40, 60 oracle
                   iterations), am_ab's three arms (8k sites, 2 x 10),
                   halo_overhead_table (20,000 sites, 8 ranks): records
                   finite, every sampler run launching both kernels
- 15. determinism  the main path twice from seed 1 (initialize -> run, 10
+ 16. determinism  the main path twice from seed 1 (initialize -> run, 10
                   iterations, 3 chains, full width): states and records bit
                   for bit, the count of differing elements 0
- 16. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
+ 17. entry        nngp_tpu_torch/entry.py's entry() on the card: one cycle of
                   2 iterations x 2 chains of the 96-site toy, records finite
- 17. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
+ 18. chains mesh  a one-process NCCL group: the main path's fit (3 chains,
                   K = 1) saved and loaded twice, then run for 25 iterations
                   with run(mc, mesh=...) and with run(mc): the count of
                   differing state and record elements 0; collective_grb over
                   NCCL against the host Gelman_Rubin_Brooks, rtol 1e-10
- 18. two ranks    a 6-chain fit at full width saved once; then
+ 19. two ranks    a 6-chain fit at full width saved once; then
                   python -m nngp_tpu_torch.parallel.resume on it for 25
                   iterations as 1 process (6 chains) and twice as 2 gloo
                   ranks sharing the card (3 chains each): the ranks hold the
@@ -139,14 +151,16 @@ with a nonzero exit and no "ok" line:
                   tests/test_parallel.py::test_sharded_cycle_matches_vmap:
                   each chain draws from its own key), and the count of
                   state elements that differ after 25 iterations
- 19. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
+ 20. halo         halo mode (sites sharded, nngp_tpu_torch/parallel/halo*.py)
                   on the main path's fit: every colour step of both D = 2
                   owned sub-plans on the fit's sweep inputs, bit for bit
                   with one launch of the whole plan and within TOL_REL of
                   the plain version; a 1 x 1 ("chains", "sites") NCCL
                   mesh runs 25 iterations against run() from the same loaded
-                  fit (0 differing state and record elements; one sweep
-                  kernel launch a colour step, 25 x 10 x 11); two gloo sites
+                  fit (0 differing state and record elements: halo
+                  mode's solve has the level solve kernel's row
+                  arithmetic on a card; one sweep kernel launch a
+                  colour step, 25 x 10 x 11); two gloo sites
                   ranks sharing the card (python -m
                   nngp_tpu_torch.parallel.resume --sites 2, a 1 x 2 mesh)
                   resume it for 10 iterations: the ranks hold the same fit,
@@ -154,7 +168,7 @@ with a nonzero exit and no "ok" line:
                   each rank's ms per iteration, exchanges and bytes per
                   iteration and the plan's overlap; then the plan at scale
                   (host only): 100,000 sites over 8 ranks, overlap < 10 %
- 20. bench        the bench's path (nngp_tpu_torch/bench.py) through its
+ 21. bench        the bench's path (nngp_tpu_torch/bench.py) through its
                   functions at full width with short fixed windows: the
                   sweep kernel's parity preflight, the 96-chain leg (K = 3,
                   lean records, 100 warmup + 100 timed iterations), the
@@ -162,7 +176,7 @@ with a nonzero exit and no "ok" line:
                   iterations); its JSON line checked as
                   tests/test_bench_smoke.py checks bench.py's, and ESS/s,
                   ms/iteration and the baseline's it/s printed
- 21. audits       the numeric audits of nngp_tpu_torch/experiments at the
+ 22. audits       the numeric audits of nngp_tpu_torch/experiments at the
                   synthetic Heavy-metals width (ratio_audit at 8
                   proposals, factor_probe, cotransform_probe, op_probe,
                   matern_probe's two layouts): each headline figure (the
@@ -174,7 +188,7 @@ with a nonzero exit and no "ok" line:
                   errors against the float64 Cholesky of the same K
                   (factor_probe's two states, matern_probe's two layouts)
                   at most 1.5 x the jitted JAX script's
- 22. bigN         nngp_tpu_torch/experiments/bigN.py at 150,000 uniform
+ 23. bigN         nngp_tpu_torch/experiments/bigN.py at 150,000 uniform
                   sites (its 500,000 are cut to fit the time limit),
                   middle-out ordering, exponential_isotropic, 3
                   chains: initialize by host stage, one warm and two timed
@@ -190,7 +204,9 @@ with a nonzero exit and no "ok" line:
 
 Phase 3 runs for exponential_sphere and for matern_sphere.  Every run
 counts the sweep kernel's and chain_draws' launches from zero and needs
-exactly one of each per iteration (halo mode's sweep launches below); halo mode needs one per colour step that has a site of the
+exactly one of each per iteration (halo mode's sweep launches below), and
+one level solve launch an ASIS pair (none in halo mode, which solves with
+its own rows); halo mode needs one per colour step that has a site of the
 rank; the bench phase needs one per iteration of its legs plus the
 preflight's one.  Every run also counts the fused factor build from zero
 and needs one launch for the cycle's factor and two an ASIS pair, and no
@@ -212,6 +228,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 TOL_REL = 2e-3      # kernel against plain: 2e-3 * max(1, |w|_inf)
 SWEEP_CHAINS = (3, 96)   # the sweep kernel's checks and times (states tiled)
+SOLVE_CHAINS = (3, 96)   # the level solve's checks and times (states tiled)
+# level solve against its twin in float64: x_i rounded once from a float64
+# sum of exact products, carrying its parents' rounding (tests/
+# test_torch_cuda.py's SOLVE_F64_TOL)
+SOLVE_F64_TOL = 1e-5
 PARITY_TOL = 1e-3   # card against CPU after 3 iterations, same scaling
 # two sites ranks against run() after 10 iterations: 1e-3 * max(1, |x|_inf)
 # per state field (only the cross-rank sums add in another order)
@@ -602,26 +623,29 @@ def probe_yardsticks(dev):
     return out
 
 
-def run_counted(mc, n_iterations, per_iteration=1, **kw):
-    """``run`` with the sweep, factor-build and draws kernels' launches
-    counted from zero; fails unless every iteration launched the sweep
-    kernel ``per_iteration`` times and ``chain_draws`` once
+def run_counted(mc, n_iterations, per_iteration=1, solves=None, **kw):
+    """``run`` with the sweep, factor-build, draws and level solve kernels'
+    launches counted from zero; fails unless every iteration launched the
+    sweep kernel ``per_iteration`` times and ``chain_draws`` once
     (``run_counted.draw_launches``), the fused factor build ran once for
     the cycle's factor and twice an ASIS pair
     (``run_counted.factor_launches``), the K-input factor rows never
-    (``run_counted.factor_rows_launches``), and every state is finite."""
+    (``run_counted.factor_rows_launches``), the level solve ``solves``
+    times (default once an ASIS pair; ``run_counted.solve_launches``), and
+    every state is finite."""
     import torch
 
     import nngp_tpu_torch
     from nngp_tpu_torch.ops import sweep
     from nngp_tpu_torch.ops.draws import chain_draws
+    from nngp_tpu_torch.ops.trisolve import level_solve
     from nngp_tpu_torch.ops.vecchia import linv_rows_from_K, vecchia_linv
 
     start = mc.iterations
     t = time.perf_counter()
     sweep.chromatic_sweeps.launches = 0
     vecchia_linv.launches = linv_rows_from_K.launches = 0
-    chain_draws.launches = 0
+    chain_draws.launches = level_solve.launches = 0
     mc = nngp_tpu_torch.run(mc, n_cycles=1, n_iterations_update=n_iterations,
                             **kw)
     torch.cuda.synchronize()
@@ -630,6 +654,7 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
     run_counted.factor_launches = vecchia_linv.launches
     run_counted.factor_rows_launches = linv_rows_from_K.launches
     run_counted.draw_launches = chain_draws.launches
+    run_counted.solve_launches = level_solve.launches
     if launches != n_iterations * per_iteration:
         raise RuntimeError(f"run launched the sweep kernel {launches} times "
                            f"in {n_iterations} iterations")
@@ -646,6 +671,12 @@ def run_counted(mc, n_iterations, per_iteration=1, **kw):
                            f"the K-input factor rows "
                            f"{run_counted.factor_rows_launches} times, "
                            "expected 0")
+    if solves is None:
+        solves = kw.get("covparams_steps", 1) * n_iterations
+    if run_counted.solve_launches != solves:
+        raise RuntimeError(f"run launched the level solve kernel "
+                           f"{run_counted.solve_launches} times in "
+                           f"{n_iterations} iterations, expected {solves}")
     if mc.iterations != start + n_iterations:
         raise RuntimeError(f"iterations {start} -> {mc.iterations}, not "
                            f"+{n_iterations}")
@@ -827,6 +858,33 @@ def draws_check(layout, dev):
               f"us ({calls} calls a thread) at {mhz:.0f} MHz; bound by "
               f"{o['bound_by']}",
               flush=True)
+    return out
+
+
+def level_solve_check(mc):
+    """The level solve kernel on ``mc``'s graph at its states tiled to C
+    chains, C in SOLVE_CHAINS (``sweep_bench.time_solve``): within
+    SOLVE_F64_TOL * max(1, |x|_inf) of its twin in float64 on the card,
+    bit for bit with the twin in float32 and between two calls, one launch
+    a call; its times beside the byte bound and the step floor.
+    {C: figures}."""
+    import torch
+
+    from nngp_tpu_torch.experiments import sweep_bench
+
+    out = {}
+    for C in SOLVE_CHAINS:
+        r = out[C] = sweep_bench.time_solve(mc, C)
+        if not r["f64_max_diff"] <= SOLVE_F64_TOL:
+            raise RuntimeError(f"level solve, {C} chains: scaled difference "
+                               f"{r['f64_max_diff']:.3e} from float64 > "
+                               f"{SOLVE_F64_TOL}")
+        if not (r["same_bits"] and r["twin_bits"]) \
+                or r["launches_a_call"] != 1:
+            raise RuntimeError(f"level solve, {C} chains: other bits from "
+                               "the twin or a repeat call, or "
+                               f"{r['launches_a_call']} launches a call")
+        torch.cuda.empty_cache()
     return out
 
 
@@ -1655,8 +1713,9 @@ def two_ranks(dev, locs, y, X, td):
 
 def halo_one_rank(dev, td):
     """A 1 x 1 ("chains", "sites") NCCL mesh: the fit ``chains_mesh_parity``
-    saved, loaded twice, run for 25 iterations in halo mode and with run();
-    (differing elements, elements, halo s, run s, halo launches, run
+    saved, loaded twice, run for 25 iterations in halo mode and with run()
+    (``parallel/halo.py:halo_level_solve`` has the level solve kernel's row
+    arithmetic on a card).  (differing elements, elements, halo s, run s, halo launches, run
     launches)."""
 
     import torch
@@ -1680,7 +1739,7 @@ def halo_one_rank(dev, td):
                             group=mesh[dim].get_group())
         kw = dict(field_thinning=0.5, verbose=False, covparams_steps=1)
         meshed, halo_s, launches = run_counted(meshed, 25, per_iteration=per,
-                                               mesh=mesh, **kw)
+                                               solves=0, mesh=mesh, **kw)
         plain, plain_s, plain_launches = run_counted(plain, 25, **kw)
         differ, total = count_differing(meshed, plain)
     finally:
@@ -1993,7 +2052,7 @@ def main():
         return 1
     import nngp_tpu_torch
     from nngp_tpu_torch.experiments import gather_ops
-    from nngp_tpu_torch.ops import _build, draws, sweep, vecchia
+    from nngp_tpu_torch.ops import _build, draws, sweep, trisolve, vecchia
     from nngp_tpu_torch.preprocess.coloring import dag_levels
     from nngp_tpu_torch.utils.datasets import synthetic_heavy_metals
 
@@ -2013,7 +2072,8 @@ def main():
                for part in vecchia.FACTOR_PARTS},
             "gather_sweep": gather_ops._sweep_library,
             "gather_probes": gather_ops._probe_library,
-            "chain_draws": draws._library}
+            "chain_draws": draws._library,
+            "level_solve_m5": functools.partial(trisolve._library, 5)}
     with ThreadPoolExecutor(len(libs)) as pool:   # one nvcc per source
         for f in [pool.submit(build) for build in libs.values()]:
             f.result()
@@ -2064,6 +2124,18 @@ def main():
               for C in DRAW_CHAINS), t)
 
     t = time.perf_counter()
+    ls = level_solve_check(mc)
+    phase("level solve", "kernel against its float64 twin " + ", ".join(
+        f"{ls[C]['f64_max_diff']:.2e} at {C} chains" for C in SOLVE_CHAINS)
+        + f" (<= {SOLVE_F64_TOL}), bit for bit with the twin; "
+        f"{ls[3]['steps']} steps from {ls[3]['rows']} rows; " + "; ".join(
+            f"{C} chains: {ls[C]['ms']:.4f} ms, device "
+            f"{ls[C]['device_ms']:.4f}, bound {ls[C]['bound_ms']:.4f} "
+            f"({100 * ls[C]['share']:.1f} %), step floor "
+            f"{ls[C]['floor_ms']:.4f} ({100 * ls[C]['floor_share']:.1f} %), "
+            f"twin {ls[C]['plain_ms']:.3f}" for C in SOLVE_CHAINS), t)
+
+    t = time.perf_counter()
     gp = gather_probes(dev)
     phase("gather probes", "kernel / plain ms: " + ", ".join(
         f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} ({v['launches']} launches)"
@@ -2081,11 +2153,12 @@ def main():
     factor_launches = run_counted.factor_launches
     fr_main_launches = run_counted.factor_rows_launches
     draw_launches = run_counted.draw_launches
+    solve_launches = run_counted.solve_launches
     phase("main path", f"run 25 iterations x 3 chains: {run_s:.3f} s = "
           f"{1e3 * run_s / 25:.2f} ms/iteration (cold), sweep kernel "
           f"launches {launches}, factor build launches {factor_launches} "
           f"(K-input factor rows {fr_main_launches}), chain_draws launches "
-          f"{draw_launches}", t)
+          f"{draw_launches}, level solve launches {solve_launches}", t)
     print("  GpGp_covparams " + json.dumps(
         {nm: [round(float(v), 6) for v in row]
          for nm, row in zip(tab["names"], tab["table"])}) + f" columns {tab['columns']}")
@@ -2431,6 +2504,19 @@ def main():
         "cpu_twin": {C: {k: dr[C][k] for k in (
             "cpu_differ", "cpu_normals", "cpu_max_ulps")}
             for C in DRAW_CHAINS}}
+        ] + [{
+        "name": "level_solve", "route": "cuda",
+        "source": "nngp_tpu_torch/csrc/level_solve.cu",
+        "replaces": "nngp_tpu/ops/trisolve.py:level_solve (a fori_loop "
+                    "over level_segs under nngp_tpu/models/gaussian.py's "
+                    "jit; XLA, not a Pallas kernel)",
+        "launches": solve_launches,
+        **{k: ls[3][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "floor_ms", "share",
+            "floor_share", "f64_max_diff", "twin_bits", "steps")},
+        "96_chains": {k: ls[96][k] for k in (
+            "ms", "device_ms", "plain_ms", "bound_ms", "floor_ms", "share",
+            "floor_share", "f64_max_diff", "twin_bits")}}
         ] + [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          **gp[name]} for name, src, rep in GATHER_KERNELS]}))

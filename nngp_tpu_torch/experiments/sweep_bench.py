@@ -3,7 +3,7 @@ Gibbs iteration profiled by block, on one CUDA card.
 
     python -m nngp_tpu_torch.experiments.sweep_bench [--chains 3 96]
         [--family F] [--profile [CHAINS:K ...]] [--factor [CHAINS ...]]
-        [--json PATH]
+        [--solve [CHAINS ...]] [--json PATH]
 
 The problem is chip_smoke.py's main path: 64,274 synthetic lon/lat sites
 (``utils/datasets.py``), ``exponential_sphere``, m = 5, 14 location
@@ -187,6 +187,87 @@ def time_factor(mc, C):
             "rows_sha256": digest[:16]}
 
 
+def level_solve_bytes(C, n, k):
+    """Bytes one level solve call must move at C chains, n sites and k =
+    m + 1 entries a factor row: linv (C n k float32) and v read, x written,
+    and the step tables (each site's index and its m parent columns, int32)
+    read once."""
+    return 4 * (C * n * (k + 2) + n * k)
+
+
+def _path_graph(S, m, device):
+    """A graph whose level schedule has S steps of one site each (site i's
+    one parent is i - 1): what the level solve costs for its steps alone."""
+    from types import SimpleNamespace
+
+    from nngp_tpu_torch.preprocess.coloring import STEP_FIELDS, level_steps
+
+    NN = torch.full((S, m + 1), -1, dtype=torch.int64)
+    NN[:, 0] = torch.arange(S)
+    if m:
+        NN[1:, 1] = torch.arange(S - 1)
+    segs = (torch.arange(S).reshape(S, 1),)
+    steps = level_steps(segs, NN, NN >= 0)
+    return SimpleNamespace(
+        n=S, NNarray=NN.to(device), nn_mask=(NN >= 0).float().to(device),
+        level_segs=tuple(t.to(device) for t in segs),
+        **{f: torch.as_tensor(t, device=device)
+           for f, t in zip(STEP_FIELDS, steps)})
+
+
+def time_solve(mc, C):
+    """The level solve at ``mc``'s states tiled to C chains, on standard
+    normal right-hand sides: median ms of 21 calls (CUDA events), the
+    device ms a call back to back, the twin's median ms, the bytes bound
+    and the step floor (the kernel on ``_path_graph`` of as many steps),
+    the largest differences from the twin in float64 over max(1,
+    |x|_inf), whether the twin and a repeat call give x's bits, the
+    launches of one call, and the SHA-256 of x's bytes."""
+    import hashlib
+
+    from nngp_tpu_torch.ops import trisolve as T
+    from nngp_tpu_torch.ops.covariance import shape_transform
+    from nngp_tpu_torch.ops.vecchia import vecchia_linv
+
+    g = mc.graph
+    names = mc.space_time_model["covfun"]["shape_params"]
+    linv = vecchia_linv(g, shape_transform(names,
+                                           tile_states(mc.states, C).shape))
+    dev = linv.device
+    v = torch.randn(C, g.n, device=dev,
+                    generator=torch.Generator(dev).manual_seed(C))
+    before = T.level_solve.launches
+    x = T.level_solve(linv, v, g)
+    launches = T.level_solve.launches - before
+    same = torch.equal(T.level_solve(linv, v, g), x)
+    twin = T.level_solve_reference(linv, v, g)
+    f64 = T.level_solve_reference(linv.double(), v.double(), g)
+    torch.cuda.synchronize()
+    scale = max(1.0, f64.abs().max().item())
+    n_steps = g.step_ptr.shape[0] - 1
+    path = _path_graph(n_steps, g.m, dev)
+    pl = torch.ones(C, path.n, g.m + 1, device=dev)
+    pv = torch.ones(C, path.n, device=dev)
+    bound_ms = 1e3 * level_solve_bytes(C, g.n, g.m + 1) / HBM_BYTES_PER_S
+    out = {"level_solve_chains": C, "steps": n_steps,
+           "rows": g.n_levels_rows, "launches_a_call": launches,
+           "same_bits": same, "twin_bits": torch.equal(x, twin),
+           "ms": timing.median_ms(lambda: T.level_solve(linv, v, g), 21),
+           "device_ms": timing.per_call_ms(
+               lambda: T.level_solve_cuda(linv, v, g), 50)[0],
+           "floor_ms": timing.median_ms(
+               lambda: T.level_solve_cuda(pl, pv, path), 21),
+           "plain_ms": timing.median_ms(
+               lambda: T.level_solve_reference(linv, v, g), 5),
+           "bound_ms": bound_ms,
+           "f64_max_diff": (x.double() - f64).abs().max().item() / scale,
+           "x_sha256": hashlib.sha256(
+               x.cpu().numpy().tobytes()).hexdigest()[:16]}
+    out["share"] = bound_ms / out["device_ms"]
+    out["floor_share"] = max(bound_ms, out["floor_ms"]) / out["device_ms"]
+    return out
+
+
 def _device_intervals(prof):
     """(name, start_ns, end_ns) of each device operation a finished
     torch.profiler recorded, on the clock of ``tracing``'s spans."""
@@ -270,6 +351,9 @@ def main(argv=None):
                          "3:1)")
     ap.add_argument("--factor", type=int, nargs="*", metavar="CHAINS",
                     help="time the factor build at each CHAINS (default 3)")
+    ap.add_argument("--solve", type=int, nargs="*", metavar="CHAINS",
+                    help="time the level solve at each CHAINS (default 3 "
+                         "96)")
     ap.add_argument("--json", default=None, help="append the lines here")
     a = ap.parse_args(argv)
     dev = timing.cuda_device()
@@ -292,6 +376,9 @@ def main(argv=None):
         torch.cuda.empty_cache()
     for C in ([] if a.factor is None else a.factor or [3]):
         lines.append(time_factor(mc, C))
+    for C in ([] if a.solve is None else a.solve or [3, 96]):
+        lines.append(time_solve(mc, C))
+        torch.cuda.empty_cache()
     for spec in ([] if a.profile is None else a.profile or ["3:1"]):
         chains, steps = (int(v) for v in spec.split(":"))
         lines.append(profile_iteration(mc, chains=chains, steps=steps))

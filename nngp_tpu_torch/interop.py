@@ -28,7 +28,8 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.models.gaussian import ChainState, ModelData
-from nngp_tpu_torch.preprocess.coloring import color_csr, sweep_plan
+from nngp_tpu_torch.preprocess.coloring import (STEP_FIELDS, color_csr,
+                                                level_steps, sweep_plan)
 from nngp_tpu_torch.preprocess.design import Design
 from nngp_tpu_torch.preprocess.graph import (PLAN_FIELDS, VecchiaGraph,
                                              sum_plans)
@@ -61,6 +62,8 @@ def graph_from_numpy(graph) -> VecchiaGraph:
         color_sites=color_sites,
         **dict(zip(PLAN_FIELDS, plan)),
         level_segs=tuple(np.asarray(t) for t in graph.level_segs),
+        **dict(zip(STEP_FIELDS, level_steps(graph.level_segs, graph.NNarray,
+                                            graph.nn_mask))),
         locs_match=np.asarray(graph.locs_match),
         hctam_scol_1=np.asarray(graph.hctam_scol_1),
         obs_per_loc=np.asarray(graph.obs_per_loc),

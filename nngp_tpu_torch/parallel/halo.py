@@ -48,6 +48,7 @@ import torch
 import torch.distributed as dist
 
 from nngp_tpu_torch.ops.sweep import SubPlan, chromatic_sweep_step
+from nngp_tpu_torch.ops.trisolve import solve_rows
 from nngp_tpu_torch.parallel.chains import CHAINS_AXIS, SITES_AXIS
 from nngp_tpu_torch.parallel.collectives import _all_reduce
 from nngp_tpu_torch.preprocess.coloring import owned_sweep_plan
@@ -420,9 +421,10 @@ def _check_rank(plan: LocalPlan, group):
 def halo_level_solve(graph, plan: LocalPlan, linv, v, group):
     """Solve L x = v per chain with the rows sharded by owner: rank d solves
     its entries of each ``level_segs`` row with ``ops/trisolve.py:
-    level_solve``'s row arithmetic, then exchanges them; a reconcile makes x
-    fresh everywhere.  linv [C, n, m+1] must be fresh at this rank's need
-    rows, v [C, n] at its owned rows."""
+    level_solve``'s row arithmetic on this device (``solve_rows``: on a card
+    the kernel's), then exchanges them; a reconcile makes x fresh
+    everywhere.  linv [C, n, m+1] must be fresh at this rank's need rows,
+    v [C, n] at its owned rows."""
     _check_rank(plan, group)
     ptr, rows_all = plan.rank.level_ptr, plan.rank.level_rows
     safe_nn = torch.clamp_min(graph.NNarray, 0)
@@ -431,11 +433,8 @@ def halo_level_solve(graph, plan: LocalPlan, linv, v, group):
         a, b = int(ptr[r]), int(ptr[r + 1])
         if b > a:
             rows = rows_all[a:b]
-            lv = linv[:, rows]                               # [C, W, m+1]
-            parents = x[:, safe_nn[rows, 1:]]                # [C, W, m]
-            acc = torch.sum(lv[..., 1:] * graph.nn_mask[rows, 1:] * parents,
-                            dim=-1)
-            x[:, rows] = (v[:, rows] - acc) / lv[..., 0]
+            x[:, rows] = solve_rows(linv[:, rows], graph.nn_mask[rows, 1:],
+                                    x[:, safe_nn[rows, 1:]], v[:, rows])
         _exchange(x, r, plan.level, group)
     return reconcile(x, plan.owner, group)
 

@@ -27,7 +27,8 @@ from nngp_tpu_torch.estimation import get_summary
 from nngp_tpu_torch.ops.covariance import shape_transform
 from nngp_tpu_torch.ops.trisolve import level_solve
 from nngp_tpu_torch.ops.vecchia import linv_mult, vecchia_linv
-from nngp_tpu_torch.preprocess.coloring import dag_levels, level_segments
+from nngp_tpu_torch.preprocess.coloring import (STEP_FIELDS, dag_levels,
+                                                level_segments, level_steps)
 from nngp_tpu_torch.preprocess.design import _expand_columns
 from nngp_tpu_torch.preprocess.graph import nn_group_sqdist
 from nngp_tpu_torch.preprocess.neighbors import find_ordered_nn
@@ -51,6 +52,9 @@ class JointGraph:
     NNarray: object               # [n_joint, m+1]
     nn_mask: object               # f32 [n_joint, m+1]
     level_segs: tuple
+    step_ptr: object              # i32, as VecchiaGraph's step_* fields
+    step_sites: object
+    step_cols: object
     covfun: str
     d_floor: float = 1e-12
 
@@ -59,12 +63,14 @@ class JointGraph:
         return self.NNarray.shape[0]
 
     def to(self, device) -> "JointGraph":
-        """The same graph with torch leaves on ``device`` (int64 indices)."""
+        """The same graph with torch leaves on ``device`` (int64 indices,
+        the level steps int32 for the kernel)."""
         t = lambda a: _tensor(a, device)  # noqa: E731
         return JointGraph(
             kernel_coords=t(self.kernel_coords), nn_dist2=t(self.nn_dist2),
             NNarray=t(self.NNarray), nn_mask=t(self.nn_mask),
             level_segs=tuple(t(s) for s in self.level_segs),
+            **{f: t(getattr(self, f)).to(torch.int32) for f in STEP_FIELDS},
             covfun=self.covfun, d_floor=self.d_floor)
 
 
@@ -76,13 +82,15 @@ def _joint_graph(mc, predicted_locs, m) -> JointGraph:
     joint = np.concatenate([mc.locs, np.asarray(predicted_locs, np.float64)], 0)
     NN = find_ordered_nn(joint, m, lonlat=lonlat)
     levels = dag_levels(NN)
+    level_segs = level_segments(levels, n_sentinel=NN.shape[0])
     coords = lonlat_to_xyz(joint) if lonlat else joint
     return JointGraph(
         kernel_coords=np.asarray(coords, np.float32),
         nn_dist2=nn_group_sqdist(coords, NN, covfun),
         NNarray=NN,
         nn_mask=(NN >= 0).astype(np.float32),
-        level_segs=tuple(level_segments(levels, n_sentinel=NN.shape[0])),
+        level_segs=level_segs,
+        **dict(zip(STEP_FIELDS, level_steps(level_segs, NN, NN >= 0))),
         covfun=covfun,
         d_floor=1e-5 if covfun.startswith("matern") else 1e-12,
     )

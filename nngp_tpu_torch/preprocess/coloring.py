@@ -17,8 +17,9 @@ Everything here is host-side NumPy producing static index arrays:
   conditional-mean gather;
 - the colour-major site list (CSR), the sweep plan built from it (sites
   sorted by degree within each colour, their neighbours as a CSR) that the
-  chromatic sweep kernel walks, and the per-level site tables walked by
-  the triangular solve.
+  chromatic sweep kernel walks, the per-level site tables walked by the
+  triangular solve, and the same levels as the CSR of steps the level
+  solve kernel walks.
 """
 
 from __future__ import annotations
@@ -263,3 +264,55 @@ def level_segments(levels: np.ndarray, n_sentinel=None, small: int = 128,
         else:
             segs.append([W, [tab]])
     return tuple(np.concatenate(tabs, axis=0) for _, tabs in segs)
+
+
+# the fields of level_steps's result, as VecchiaGraph and prediction's
+# JointGraph hold them
+STEP_FIELDS = ("step_ptr", "step_sites", "step_cols")
+
+
+def level_steps(level_segs, NNarray, nn_mask):
+    """The level schedule as the level solve kernel walks it: (step_ptr
+    int32 [S+1], step_sites int32 [n], step_cols int32 [n, m]).  Step s
+    holds ``step_sites[step_ptr[s]:step_ptr[s+1]]`` in increasing order, and
+    ``step_cols`` each one's parent columns (-1 where ``nn_mask`` is 0).
+
+    The rows of ``level_segs`` are walked in order (pad >= n); a row joins
+    the current step unless one of its sites has a parent there, so the
+    rows of one DAG level become one step and every parent lies in an
+    earlier step.  Raises ValueError when a site comes twice, a parent
+    comes after its child, or a site is in no row."""
+    NN = np.asarray(NNarray).astype(np.int64)
+    n = NN.shape[0]
+    par = np.where((NN[:, 1:] >= 0) & (np.asarray(nn_mask)[:, 1:] != 0),
+                   NN[:, 1:], -1)
+    step_of = np.full(n, -1, dtype=np.int64)
+    steps = []
+    for tab in level_segs:
+        for row in np.asarray(tab):
+            sites = row[(row >= 0) & (row < n)].astype(np.int64)
+            if sites.size == 0:
+                continue
+            if (step_of[sites] >= 0).any() or \
+                    np.unique(sites).size != sites.size:
+                raise ValueError("level_steps: a site is in two rows of the "
+                                 "level schedule")
+            p = par[sites]
+            p = p[p >= 0]
+            if (step_of[p] < 0).any():
+                raise ValueError("level_steps: a parent comes after its "
+                                 "child in the level schedule")
+            if not steps or (p.size and step_of[p].max() == len(steps) - 1):
+                steps.append([])
+            step_of[sites] = len(steps) - 1
+            steps[-1].append(sites)
+    missing = int((step_of < 0).sum())
+    if missing:
+        raise ValueError(f"level_steps: {missing} of {n} sites are in no "
+                         "row of the level schedule")
+    order = [np.sort(np.concatenate(s)) for s in steps]
+    ptr = np.zeros(len(order) + 1, dtype=np.int32)
+    ptr[1:] = np.cumsum([len(s) for s in order])
+    sites = (np.concatenate(order) if order
+             else np.zeros(0, dtype=np.int64))
+    return ptr, sites.astype(np.int32), par[sites].astype(np.int32)

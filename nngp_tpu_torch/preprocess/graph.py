@@ -7,9 +7,11 @@ It adds the colour-major CSR (``color_ptr``, ``color_sites``), the
 sweep plan the chromatic sweep kernel walks (``plan_*``,
 ``preprocess/coloring.py:sweep_plan``) and the tables of the three
 scatter-sums of an iteration (``nn_sum``, ``pair_sum``, ``obs_sum``:
-:class:`OrderedSum`), which add each target's terms in a fixed order.
+:class:`OrderedSum`), which add each target's terms in a fixed order, and
+the level steps the level solve kernel walks (``step_*``,
+``preprocess/coloring.py:level_steps``).
 ``build_graph`` returns NumPy leaves; ``VecchiaGraph.to(device)`` gives
-the same dataclass with torch leaves: int32 for the colour and plan tables and the padded neighbour
+the same dataclass with torch leaves: int32 for the colour, plan and step tables and the padded neighbour
 lists, int64 for every other index tensor, float32 values.
 """
 
@@ -22,10 +24,12 @@ import numpy as np
 import torch
 
 from nngp_tpu_torch.preprocess.coloring import (
+    STEP_FIELDS,
     color_csr,
     dag_levels,
     greedy_coloring,
     level_segments,
+    level_steps,
     moralized_edges,
     site_neighbor_lists,
     sweep_plan,
@@ -35,10 +39,12 @@ from nngp_tpu_torch.preprocess.neighbors import find_ordered_nn
 from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
 from nngp_tpu_torch.tracing import span
 
-# index tables kept int32 on the device (the sweep kernel reads the plan);
+# index tables kept int32 on the device (the sweep kernel reads the plan,
+# the level solve kernel the steps);
 # every other integer leaf becomes int64
 _KERNEL_I32 = ("nbr_sites", "nbr_edge", "color_ptr", "color_sites",
-               "plan_sites", "plan_ptr", "plan_nbr", "plan_edge")
+               "plan_sites", "plan_ptr", "plan_nbr", "plan_edge",
+               *STEP_FIELDS)
 # the fields of coloring.sweep_plan's result
 PLAN_FIELDS = ("plan_sites", "plan_ptr", "plan_nbr", "plan_edge")
 
@@ -136,6 +142,12 @@ class VecchiaGraph:
     # triangular-solve schedule: tuple of [k_s, W_s] tables in topological
     # order, pad = n (preprocess.coloring.level_segments)
     level_segs: tuple
+    # the same schedule as the level solve kernel walks it
+    # (coloring.level_steps): step s solves
+    # step_sites[step_ptr[s]:step_ptr[s+1]], whose parents are step_cols
+    step_ptr: object              # i32 [S+1]
+    step_sites: object            # i32 [n]
+    step_cols: object             # i32 [n, m]  (pad -1)
     # observation maps
     locs_match: object            # [n_obs]
     hctam_scol_1: object          # [n]
@@ -254,6 +266,7 @@ def build_graph(
         plan = sweep_plan(color_ptr, color_sites, nbr_sites, nbr_edge)
         levels = dag_levels(NN)
         level_segs = level_segments(levels, n_sentinel=n)
+        steps = level_steps(level_segs, NN, NN >= 0)
     with span("nn_dist2", timings):
         coords = lonlat_to_xyz(locs) if lonlat else locs
         nn_dist2 = nn_group_sqdist(coords, NN, covfun, dtype=dtype)
@@ -272,6 +285,7 @@ def build_graph(
         color_sites=color_sites,
         **dict(zip(PLAN_FIELDS, plan)),
         level_segs=level_segs,
+        **dict(zip(STEP_FIELDS, steps)),
         locs_match=obs_maps.locs_match,
         hctam_scol_1=obs_maps.hctam_scol_1,
         obs_per_loc=obs_maps.obs_per_loc.astype(dtype),

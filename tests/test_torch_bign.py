@@ -74,7 +74,8 @@ def test_graph_bytes_counts_every_tensor(fits):
         g.kernel_coords, g.nn_dist2, g.NNarray, g.nn_mask, g.pair_edge_id,
         g.pair_a, g.pair_b, g.nbr_sites, g.nbr_edge, g.nbr_mask, g.color_ptr,
         g.color_sites, g.plan_sites, g.plan_ptr, g.plan_nbr, g.plan_edge,
-        *g.level_segs, g.locs_match, g.hctam_scol_1, g.obs_per_loc,
+        *g.level_segs, g.step_ptr, g.step_sites, g.step_cols, g.locs_match,
+        g.hctam_scol_1, g.obs_per_loc,
         g.nn_sum.src, g.nn_sum.pos, g.pair_sum.src, g.pair_sum.pos,
         g.obs_sum.src, g.obs_sum.pos))
     assert bigN.graph_bytes(g) == want

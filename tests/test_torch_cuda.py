@@ -19,7 +19,7 @@ import nngp_tpu_torch
 from nngp_tpu_torch.experiments import (data, gather_bench, gather_ops,
                                         gather_probe, gather_probe2)
 from nngp_tpu_torch.models import gaussian as G
-from nngp_tpu_torch.ops import draws, sweep
+from nngp_tpu_torch.ops import draws, sweep, trisolve
 from nngp_tpu_torch.ops.covariance import shape_transform
 from nngp_tpu_torch.ops.draws import DrawKey
 from nngp_tpu_torch.ops.vecchia import vecchia_linv
@@ -615,6 +615,117 @@ def test_factor_build_refuses_what_it_does_not_take():
     before = V.vecchia_linv.launches
     assert V.vecchia_linv(g, nat.double()).dtype == torch.float64
     assert V.vecchia_linv.launches == before
+
+
+# --- the level solve -------------------------------------------------------
+
+# Kernel against float64: each x_i is rounded once to float32 from a float64
+# sum of exact products, and carries its parents' rounding (~1e-7 of
+# max(1, |x|_inf) on these graphs, the NumPy emulation on the CPU); 1e-5
+# leaves room for its growth over the DAG's levels.
+SOLVE_F64_TOL = 1e-5
+
+
+@functools.cache
+def _solve_graph(kind):
+    """(graph on the card, the fit it came from): "narrow" is the 500-site
+    problem (levels under 128 sites, one row of level_segs each), "wide"
+    20,000 Heavy-metals-like sites (levels wider than 512, several rows
+    each), "joint" prediction's joint graph over the 500 sites and 300 new
+    ones (m = 10, pad = n_joint)."""
+    from nngp_tpu_torch import prediction as P
+
+    dev = _card()
+    if kind == "wide":
+        locs, y, X = synthetic_heavy_metals(n=20000, p=2, seed=9)
+        mc = nngp_tpu_torch.initialize(
+            locs, y, X_locs=X, m=5, stationary_covfun="exponential_sphere",
+            n_chains=1, seed=4, device=dev, verbose=False)
+        return mc.graph, mc
+    mc = _mc(dev)
+    if kind == "joint":
+        new = synthetic_heavy_metals(n=300, p=0, seed=3)[0]
+        return P._joint_graph(mc, new, 10).to(dev), mc
+    return mc.graph, mc
+
+
+def _solve_inputs(kind, chains):
+    """(graph, linv, v): the fit's shape params tiled to ``chains`` and
+    moved apart by 0.3 standard normals a chain, v standard normal."""
+    g, mc = _solve_graph(kind)
+    dev = g.NNarray.device
+    gen = torch.Generator(dev).manual_seed(chains)
+    shape = mc.states.shape[:1].repeat(chains, 1)
+    shape = shape + 0.3 * torch.randn(shape.shape, device=dev, generator=gen)
+    names = mc.space_time_model["covfun"]["shape_params"]
+    linv = vecchia_linv(g, shape_transform(names, shape))
+    v = torch.randn(chains, g.n, device=dev, generator=gen)
+    return g, linv, v
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chains", [1, 3, 96])
+@pytest.mark.parametrize("kind", ["narrow", "wide", "joint"])
+def test_level_solve_kernel_matches_twin_and_float64(kind, chains):
+    """The kernel against its twin and the twin in float64 on the same
+    inputs: the twin's bits (it has the kernel's arithmetic on a card),
+    the same bits between two calls; one launch a call."""
+    g, linv, v = _solve_inputs(kind, chains)
+    assert max(int(t.max()) for t in g.level_segs) == g.n   # padded lanes
+    before = trisolve.level_solve.launches
+    x = trisolve.level_solve(linv, v, g)
+    again = trisolve.level_solve(linv, v, g)
+    assert trisolve.level_solve.launches == before + 2
+    twin = trisolve.level_solve_reference(linv, v, g)
+    f64 = trisolve.level_solve_reference(linv.double(), v.double(), g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(x).all()
+    assert torch.equal(x, again)
+    scale = max(1.0, f64.abs().max().item())
+    assert (x.double() - f64).abs().max().item() <= SOLVE_F64_TOL * scale
+    assert torch.equal(x, twin)
+
+
+@pytest.mark.gpu
+def test_level_solve_dense_back_substitution():
+    """The kernel on the 500-site graph against a float64 dense
+    back-substitution of the same factor rows."""
+    g, linv, v = _solve_inputs("narrow", 3)
+    x = trisolve.level_solve(linv, v, g).double().cpu().numpy()
+    NN = g.NNarray.cpu().numpy()
+    lv, vv = linv.double().cpu().numpy(), v.double().cpu().numpy()
+    for c in range(3):
+        L = np.zeros((g.n, g.n))
+        for j in range(NN.shape[1]):
+            ok = NN[:, j] >= 0
+            L[np.arange(g.n)[ok], NN[ok, j]] = lv[c, ok, j]
+        want = np.linalg.solve(L, vv[c])
+        assert np.abs(x[c] - want).max() <= SOLVE_F64_TOL * max(
+            1.0, np.abs(want).max())
+
+
+@pytest.mark.gpu
+def test_level_solve_refuses_what_the_kernel_does_not_take():
+    g, linv, v = _solve_inputs("narrow", 3)
+    with pytest.raises(TypeError, match="float32"):
+        trisolve.level_solve(linv.double(), v.double(), g)
+    with pytest.raises(ValueError, match="expected"):
+        trisolve.level_solve_cuda(linv[:, :-1].contiguous(), v, g)
+    with pytest.raises(ValueError, match="contiguous"):
+        trisolve.level_solve_cuda(linv, v.t().contiguous().t(), g)
+    cpu_graph = g.to("cpu")
+    with pytest.raises(TypeError, match="level steps are torch.int32 on cpu"):
+        trisolve.level_solve_cuda(linv, v, cpu_graph)
+
+
+@pytest.mark.gpu
+def test_run_launches_the_level_solve_kernel_once_a_solve():
+    """K = 2 ASIS pairs for 10 iterations: 20 solves, 20 launches."""
+    dev = _card()
+    mc = _mc(dev)
+    before = trisolve.level_solve.launches
+    nngp_tpu_torch.run(mc, covparams_steps=2, **RUN)
+    assert trisolve.level_solve.launches - before == 2 * 10
 
 
 # --- Matérn, prediction, save/load on the card -------------------------------

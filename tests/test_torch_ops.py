@@ -116,6 +116,183 @@ def test_level_solve(problem):
         np.testing.assert_allclose(got[c], x, rtol=1e-4, atol=1e-4)
 
 
+
+def _graphs(problem):
+    """The problem's graph and a prediction joint graph over it (60 new
+    sites, m = 6, pad = n_joint), both with torch leaves on the CPU."""
+    from nngp_tpu_torch import prediction as P
+
+    mc, g_t, _, _, rng = problem
+    lo, hi = mc.locs.min(0), mc.locs.max(0)
+    joint = P._joint_graph(mc, rng.uniform(lo, hi, size=(60, 2)), 6)
+    return {"graph": g_t, "joint": joint.to("cpu")}
+
+
+def _numpy_walk(linv, v, ptr, sites, cols):
+    """x of L x = v walked over the level-step CSR in NumPy, each site's
+    arithmetic the twin's: float32 products summed by ``torch.sum`` (whose
+    order the CPU's vector unit sets), then subtract and divide."""
+    x = np.zeros(v.shape, dtype=np.float32)
+    for s in range(len(ptr) - 1):
+        st, c = sites[ptr[s]:ptr[s + 1]], cols[ptr[s]:ptr[s + 1]]
+        prod = linv[:, st, 1:] * (c >= 0).astype(np.float32) \
+            * x[:, np.maximum(c, 0)]
+        acc = torch.sum(torch.from_numpy(prod), dim=-1).numpy()
+        x[:, st] = (v[:, st] - acc) / linv[:, st, 0]
+    return x
+
+
+def test_level_steps_visit_every_site_once_after_its_parents(problem):
+    from nngp_tpu_torch.preprocess.coloring import dag_levels, level_steps
+
+    for name, g in _graphs(problem).items():
+        ptr, sites, cols = level_steps(g.level_segs, g.NNarray, g.nn_mask)
+        n = g.n
+        assert ptr[0] == 0 and ptr[-1] == n and (np.diff(ptr) > 0).all()
+        assert np.array_equal(np.sort(sites), np.arange(n)), name
+        step = np.empty(n, dtype=np.int64)
+        for s in range(len(ptr) - 1):
+            st = sites[ptr[s]:ptr[s + 1]]
+            assert (np.diff(st) > 0).all()          # increasing in a step
+            step[st] = s
+        NN = np.asarray(g.NNarray)
+        want = np.where(NN[sites, 1:] >= 0, NN[sites, 1:], -1)
+        assert np.array_equal(cols, want), name
+        par = cols >= 0
+        assert (step[cols[par]] < np.repeat(step[sites], par.sum(1))).all()
+        # the rows of one level merge: a step a DAG level
+        assert len(ptr) - 1 == int(dag_levels(NN).max()) + 1, name
+
+
+def test_level_steps_walk_equals_reference_bits(problem):
+    from nngp_tpu_torch.preprocess.coloring import level_steps
+
+    mc, _, _, natural, rng = problem
+    for name, g in _graphs(problem).items():
+        linv = tvec.vecchia_linv(g, torch.as_tensor(natural))
+        v = torch.as_tensor(rng.normal(size=(C, g.n)).astype(np.float32))
+        want = ttri.level_solve_reference(linv, v, g).numpy()
+        got = _numpy_walk(linv.numpy(), v.numpy(),
+                          *level_steps(g.level_segs, g.NNarray, g.nn_mask))
+        np.testing.assert_array_equal(got, want, err_msg=name)
+
+
+def test_graphs_carry_their_level_steps(problem):
+    """Both graphs hold ``level_steps`` of their own schedule, int32 once
+    moved to a device (the kernel reads them as they are)."""
+    from nngp_tpu_torch.preprocess.coloring import STEP_FIELDS, level_steps
+
+    for name, g in _graphs(problem).items():
+        want = level_steps(g.level_segs, g.NNarray, g.nn_mask)
+        for f, w in zip(STEP_FIELDS, want):
+            t = getattr(g, f)
+            assert t.dtype == torch.int32, (name, f)
+            np.testing.assert_array_equal(t.numpy(), w, err_msg=f"{name} {f}")
+
+
+def test_level_solve_on_cpu_is_the_plain_twin(problem):
+    """The wrapper on CPU tensors runs the twin (today's row loop): the
+    same bits, no kernel launch."""
+    mc, g_t, _, natural, rng = problem
+    linv = torch.as_tensor(_jax_linv(mc, natural))
+    v = torch.as_tensor(rng.normal(size=(C, g_t.n)).astype(np.float32))
+    before = ttri.level_solve.launches
+    got = ttri.level_solve(linv, v, g_t)
+    assert torch.equal(got, ttri.level_solve_reference(linv, v, g_t))
+    assert ttri.level_solve.launches == before
+    # float64 in, float64 out, on the same rows
+    assert ttri.level_solve(linv.double(), v.double(), g_t).dtype == \
+        torch.float64
+
+
+def test_level_steps_merge_a_wide_level_and_refuse_bad_schedules():
+    from types import SimpleNamespace
+
+    from nngp_tpu_torch.preprocess.coloring import level_segments, level_steps
+
+    # 1,300 roots, then 700 sites each with one root parent: two levels
+    # split over 3 + 2 rows of 512, merged into two steps
+    n = 2000
+    NN = np.full((n, 3), -1, dtype=np.int64)
+    NN[:, 0] = np.arange(n)
+    NN[1300:, 1] = np.arange(700)
+    mask = (NN >= 0).astype(np.float32)
+    levels = (NN[:, 1] >= 0).astype(np.int32)
+    segs = level_segments(levels, n_sentinel=n)
+    assert [t.shape for t in segs] == [(5, 512)]
+    ptr, sites, cols = level_steps(segs, NN, mask)
+    assert ptr.tolist() == [0, 1300, 2000]
+    assert np.array_equal(sites, np.arange(n))
+    assert np.array_equal(cols[1300:, 0], np.arange(700))
+    assert (cols[:1300] == -1).all() and (cols[:, 1] == -1).all()
+    # a zero in the mask drops the parent, as the twin's product does
+    mask2 = mask.copy()
+    mask2[1300, 1] = 0
+    assert level_steps(segs, NN, mask2)[2][1300, 0] == -1
+    # the rows in the wrong order, a site twice, a site left out
+    with pytest.raises(ValueError, match="parent comes after"):
+        level_steps((segs[0][::-1],), NN, mask)
+    twice = (np.concatenate([segs[0], segs[0][:1]]),)
+    with pytest.raises(ValueError, match="two rows"):
+        level_steps(twice, NN, mask)
+    short = segs[0].copy()
+    short[1, 288] = n                  # site 800, no one's parent: a pad
+    with pytest.raises(ValueError, match="1 of 2000 sites"):
+        level_steps((short,), NN, mask)
+    # the wrapper's checks refuse CPU tensors and too many neighbours
+    g = SimpleNamespace(n=n, NNarray=torch.as_tensor(NN),
+                        nn_mask=torch.as_tensor(mask), level_segs=segs)
+    with pytest.raises(TypeError, match="CUDA"):
+        ttri.level_solve_cuda(torch.ones(2, n, 3), torch.ones(2, n), g)
+    wide = SimpleNamespace(n=4, NNarray=torch.zeros(4, 18, dtype=torch.long))
+    with pytest.raises(ValueError, match="at most 16"):
+        ttri.level_solve_cuda(torch.ones(2, 4, 18), torch.ones(2, 4), wide)
+
+
+def _kernel_sites(lv, mask, parents, v):
+    """The level solve kernel's arithmetic one site at a time in Python
+    floats (IEEE float64): each product of two float32 is exact, added in
+    index order over the parents whose mask is not 0, then (v - sum) /
+    lv[0], rounded once to float32."""
+    x = np.empty(v.shape, dtype=np.float32)
+    for c, w in np.ndindex(*v.shape):
+        s = 0.0
+        for j in range(mask.shape[1]):
+            if mask[w, j] != 0:
+                s += float(lv[c, w, j + 1]) * float(parents[c, w, j])
+        x[c, w] = np.float32((float(v[c, w]) - s) / float(lv[c, w, 0]))
+    return x
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("m", [1, 2, 5, 16])
+def test_kernel_rows_is_the_kernels_arithmetic(m, masked):
+    """``kernel_rows`` (the card's row arithmetic, shared by the twin and
+    halo mode's solve) gives the bits of the kernel's per-site sums.  At
+    m >= 3 the first two products are about 2^40 and cancel exactly, so a
+    sum in any other order than 1..m loses the others' low bits and shows
+    at float32; a masked parent adds nothing, even an inf."""
+    rng = np.random.default_rng(m)
+    W = 257
+    lv = rng.normal(size=(3, W, m + 1)).astype(np.float32)
+    parents = rng.normal(size=(3, W, m)).astype(np.float32)
+    if m >= 3:
+        big = (2.0 ** 20 * rng.normal(size=(3, W))).astype(np.float32)
+        lv[..., 1], lv[..., 2] = big, -big
+        parents[..., 0] = parents[..., 1] = (
+            2.0 ** 20 * rng.normal(size=(3, W))).astype(np.float32)
+    v = rng.normal(size=(3, W)).astype(np.float32)
+    mask = np.ones((W, m), dtype=np.float32)
+    if masked:
+        mask[rng.random((W, m)) < 0.25] = 0
+        parents[:, mask == 0] = np.inf
+    want = _kernel_sites(lv, mask, parents, v)
+    got = ttri.kernel_rows(*(torch.as_tensor(a)
+                             for a in (lv, mask, parents, v)))
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
 def test_nngp_loglik_and_diff(problem):
     mc, g_t, states_t, natural, rng = problem
     linv_old = _jax_linv(mc, natural)
