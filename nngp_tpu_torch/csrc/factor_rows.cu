@@ -14,9 +14,10 @@
 //                        (the G ranges, then Matérn's nu), for the rows
 //                        0..R-1 or a row list (halo mode).  The
 //                        exponential families run in float32; the Matérn
-//                        ones widen those inputs (exactly) and run in
-//                        float64 through K, the Cholesky and the solves,
-//                        rounding each row entry once to float32.
+//                        ones take float64 natural params, widen the
+//                        distances (exactly) and run in float64 through
+//                        K, the Cholesky and the solves, rounding each row
+//                        entry once to float32.
 //
 // Replaces nngp_tpu's vecchia_linv (nngp_tpu/ops/vecchia.py:116, the rows
 // :83, the correlation ops/covariance.py:145 with Matérn's _matern :273 and
@@ -466,7 +467,7 @@ __host__ __device__ inline int consts_offset(int T, int pad, int ko) {
 }
 
 // Matérn's values are double (each row rounded once to float on its way
-// out), the exponential families' float.
+// out), the exponential families' float; so are their natural params.
 template <bool kMatern>
 using BuildValue = std::conditional_t<kMatern, double, float>;
 
@@ -474,7 +475,7 @@ template <int M, bool kMatern>
 __global__ void __launch_bounds__(128)
 factor_build_kernel(const float* __restrict__ d2g,
                     const float* __restrict__ mask,
-                    const float* __restrict__ natural,
+                    const BuildValue<kMatern>* __restrict__ natural,
                     const long long* __restrict__ rows,
                     float* __restrict__ out, int C, int R, int G, int n_shape,
                     int chains_per_block, BuildValue<kMatern> d_floor) {
@@ -553,7 +554,7 @@ factor_build_kernel(const float* __restrict__ d2g,
 
 template <int M>
 cudaError_t launch_build(bool matern, const float* d2g, const float* mask,
-                         const float* natural, const long long* rows,
+                         const void* natural, const long long* rows,
                          float* out, int C, int R, int G, int n_shape,
                          double d_floor, cudaStream_t st) {
   constexpr int k = M + 1, ko = k | 1;
@@ -576,20 +577,24 @@ cudaError_t launch_build(bool matern, const float* d2g, const float* mask,
   ny = ny < 65535 ? ny : 65535;
   const int per = (int)((C + ny - 1) / ny);
   const dim3 grid((unsigned int)bx, (unsigned int)((C + per - 1) / per));
-  auto go = [&](auto kern) {
+  auto go = [&](auto kern, auto nat) {
     if (bytes > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
       if (e != cudaSuccess) return e;
     }
-    kern<<<grid, T, bytes, st>>>(d2g, mask, natural, rows, out, C, R, G,
+    kern<<<grid, T, bytes, st>>>(d2g, mask, nat, rows, out, C, R, G,
                                  n_shape, per, d_floor);
     return cudaGetLastError();
   };
   if (matern) {
-    if constexpr ((kPart & 4) != 0) return go(factor_build_kernel<M, true>);
+    if constexpr ((kPart & 4) != 0)
+      return go(factor_build_kernel<M, true>,
+                static_cast<const double*>(natural));
   } else {
-    if constexpr ((kPart & 2) != 0) return go(factor_build_kernel<M, false>);
+    if constexpr ((kPart & 2) != 0)
+      return go(factor_build_kernel<M, false>,
+                static_cast<const float*>(natural));
   }
   return cudaErrorNotSupported;   // this part was built without it
 }
@@ -626,12 +631,12 @@ extern "C" int factor_rows_launch(const float* K, const float* mask,
 
 #if FACTOR_PART & 6
 // out [C, R, m+1] from nn_dist2 [n, m+1, m+1, G], nn_mask [n, m+1] and
-// natural [C, n_shape] (the G ranges, then nu when matern != 0); row r of
-// the output is graph row rows[r], or r when rows is null.  d_floor is a
-// double: the Matérn rows floor d at it in float64, the exponential ones
-// at its float.
+// natural [C, n_shape] (the G ranges, then nu when matern != 0: double
+// then, float otherwise); row r of the output is graph row rows[r], or r
+// when rows is null.  d_floor is a double: the Matérn rows floor d at it
+// in float64, the exponential ones at its float.
 extern "C" int factor_build_launch(const float* d2g, const float* mask,
-                                   const float* natural, const long long* rows,
+                                   const void* natural, const long long* rows,
                                    float* out, int C, int R, int m, int G,
                                    int n_shape, int matern, double d_floor,
                                    void* stream) {

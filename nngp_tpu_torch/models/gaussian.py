@@ -172,6 +172,12 @@ class IterationDraws:
 
 
 def _natural_shape(cfg: UpdateConfig, sampled: torch.Tensor) -> torch.Tensor:
+    """The natural shape params of ``sampled`` [C, n_shape]: float64 for the
+    Matérn families (a smoothness name), whose factor build runs in float64
+    from them (an ulp of a float32 nu moves a collapsed chain's sufficient
+    log ratio by units), in ``sampled``'s dtype otherwise."""
+    if any(name.startswith("qlogis") for name in cfg.shape_names):
+        sampled = sampled.double()
     return shape_transform(cfg.shape_names, sampled)
 
 

@@ -23,8 +23,9 @@ the leading tensor dimension (``nngp_tpu`` vmaps over them): ``linv`` is
 - ``precision_diag_and_q_edges``: the nonzeros of Q = L'L by sums over the
   compressed rows' entries and over the moralized-edge map.
 - ``nngp_loglik`` / ``nngp_loglik_diff``: the Vecchia log-density, and the
-  MH ratio of two factors as one float64-accumulated sum of per-site
-  differences (the role of ``nngp_tpu``'s double-float ``df_sum``).
+  MH ratio of two factors as one sum of per-site differences computed in
+  float64 (``loglik_diff_terms``; ``nngp_tpu`` takes float32 terms into
+  its double-float ``df_sum``).
 
 Compressed-row convention (same as GpGp): row i of L has entries at columns
 NNarray[i, :] = [i, parents...]; linv[..., i, 0] is the diagonal.
@@ -239,13 +240,14 @@ def vecchia_linv_reference(covfun: str, nn_dist2: torch.Tensor,
     squared distances nn_dist2 [R, k, k, G], then ``linv_rows_reference``
     with the rows' mask nn_mask [R, k].
 
-    The Matérn families on float32 inputs run in float64 from the widened
-    (exact) distances and shape params through K, the Cholesky and the
-    solves, and round each row once to float32: near singular, an ulp of
-    a float32 K amplified by 1/d decides the rows' error, so K must not
-    be rounded to float32 before the Cholesky.  The exponential families,
-    and float64 inputs, run in their own dtype."""
-    if covfun.startswith("matern") and natural.dtype == torch.float32:
+    The Matérn families on float32 distances run in float64 from the
+    widened (exact) distances and the shape params (float32 widened, or
+    float64) through K, the Cholesky and the solves, and round each row
+    once to float32: near singular, an ulp of a float32 K amplified by 1/d
+    decides the rows' error, so K must not be rounded to float32 before
+    the Cholesky.  The exponential families run in their inputs' dtype,
+    and float64 distances give float64 rows."""
+    if covfun.startswith("matern") and nn_dist2.dtype == torch.float32:
         K = correlation_from_sqdist(covfun, nn_dist2.double(),
                                     natural.double())
         return linv_rows_reference(K, nn_mask.double(), d_floor).float()
@@ -258,11 +260,15 @@ def factor_build_cuda(graph, natural: torch.Tensor,
     """The ``factor_build`` kernel (``csrc/factor_rows.cu``): the factor
     [C, R, m+1] at the graph's rows (all n, or the R rows of ``rows``, an
     int32/int64 index in [0, n)) from its
-    ``nn_dist2`` [n, k, k, G] and ``nn_mask`` [n, k] and natural shape
-    params [C, n_shape], float32 contiguous on one card; launched on the
-    current stream, counted in ``vecchia_linv.launches``."""
+    ``nn_dist2`` [n, k, k, G] and ``nn_mask`` [n, k], float32, and natural
+    shape params [C, n_shape], float32 (the Matérn families: float64, or
+    float32 widened), contiguous on one card; launched on the current
+    stream, counted in ``vecchia_linv.launches``."""
     covfun, d2g, mask = graph.covfun, graph.nn_dist2, graph.nn_mask
     require_supported(covfun)
+    matern = covfun.startswith("matern")
+    if matern and natural.dtype == torch.float32:
+        natural = natural.double()     # exact: the build runs in float64
     if d2g.dim() != 4 or d2g.shape[1] != d2g.shape[2]:
         raise ValueError(f"factor_build: nn_dist2 has shape "
                          f"{tuple(d2g.shape)}, expected [n, k, k, G]")
@@ -270,17 +276,18 @@ def factor_build_cuda(graph, natural: torch.Tensor,
     if k - 1 > FACTOR_ROWS_MAX_M:
         raise ValueError(f"factor_build: m = {k - 1} neighbours, the kernel "
                          f"takes at most {FACTOR_ROWS_MAX_M}")
-    matern = covfun.startswith("matern")
     if natural.dim() != 2 or natural.shape[1] < G + matern:
         raise ValueError(f"factor_build: natural has shape "
                          f"{tuple(natural.shape)}, expected [C, >= "
                          f"{G + matern}] for {covfun}")
-    for name, t, shape in (("nn_dist2", d2g, d2g.shape),
-                           ("nn_mask", mask, (n, k)),
-                           ("natural", natural, natural.shape)):
-        if t.dtype != torch.float32 or t.device != natural.device:
+    for name, t, shape, dtype in (
+            ("nn_dist2", d2g, d2g.shape, torch.float32),
+            ("nn_mask", mask, (n, k), torch.float32),
+            ("natural", natural, natural.shape,
+             torch.float64 if matern else torch.float32)):
+        if t.dtype != dtype or t.device != natural.device:
             raise TypeError(f"factor_build: {name} is {t.dtype} on "
-                            f"{t.device}, expected float32 on "
+                            f"{t.device}, expected {dtype} on "
                             f"{natural.device}")
         if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
             raise ValueError(f"factor_build: {name} has shape "
@@ -330,12 +337,18 @@ def vecchia_linv(graph, natural_shape: torch.Tensor,
     where b = Knn^-1 Kni and d = 1 - Kni' b.  Padded parent slots produce
     exact zeros.  The correlations come from the host-f64 ``nn_dist2``, so
     no coordinate cancellation enters the factor; the Matérn families
-    build each float32 row in float64 and round it once.  float32 on a
-    card is one ``factor_build`` launch (``vecchia_linv.launches`` counts
-    them); the CPU, and float64 anywhere, run ``vecchia_linv_reference``."""
+    build each float32 row in float64 (from float64 natural params where
+    given: the sampler's, ``models/gaussian.py:_natural_shape``) and round
+    it once.  A float32 graph on a card is one ``factor_build`` launch
+    (``vecchia_linv.launches`` counts them) for float32 natural params, and
+    for the Matérn families' float64 ones; the CPU, and float64 otherwise,
+    run ``vecchia_linv_reference``."""
     with span("factor"):
+        matern64 = (natural_shape.dtype == torch.float64
+                    and graph.covfun.startswith("matern"))
         if natural_shape.device.type == "cuda" and (
-                natural_shape.dtype == graph.nn_dist2.dtype == torch.float32):
+                graph.nn_dist2.dtype == torch.float32) and (
+                natural_shape.dtype == torch.float32 or matern64):
             return factor_build_cuda(graph, natural_shape.contiguous(), rows)
         d2g, mask = graph.nn_dist2, graph.nn_mask
         if rows is not None:
@@ -407,18 +420,37 @@ def nngp_loglik(linv: torch.Tensor, field: torch.Tensor, graph,
             - 0.5 * sum64(z * z) * torch.exp(-log_scale))
 
 
+def loglik_diff_terms(linv_new, log_scale_new, linv_old, log_scale_old,
+                      field, graph, rows=None) -> torch.Tensor:
+    """The per-site summands of ``nngp_loglik_diff``, float64 [C, n] (at
+    ``rows`` only: [C, len(rows)]).  The rows and the field are widened, so
+    z = L field, exp(-log_scale) and each summand are float64: where the
+    scale has collapsed (exp(-log_scale) ~ 1e7, z'z exp(-log_scale) ~ 1e8)
+    a float32 rounding of z or of exp would move the ratio by whole units."""
+    nn, mask = graph.NNarray, graph.nn_mask
+    if rows is not None:
+        nn, mask = nn[rows], mask[rows]
+        linv_new, linv_old = linv_new[:, rows], linv_old[:, rows]
+    # float32 values times a 0/1 mask, widened: exact; each float32 row
+    # entry times them is then exact in float64 (promoted, not copied)
+    vals = (field[:, torch.clamp_min(nn, 0)] * mask).double()
+    z_new = torch.sum(linv_new * vals, dim=-1)
+    z_old = torch.sum(linv_old * vals, dim=-1)
+    c_new = torch.exp(-log_scale_new.double())[:, None]
+    c_old = torch.exp(-log_scale_old.double())[:, None]
+    # log(a/b) for a ~ b as log1p((a-b)/b): the subtraction is exact
+    a, b = linv_new[..., 0].double(), linv_old[..., 0].double()
+    return (torch.log1p((a - b) / b)
+            - 0.5 * (z_new * z_new * c_new - z_old * z_old * c_old))
+
+
 def nngp_loglik_diff(linv_new, log_scale_new, linv_old, log_scale_old,
                      field, graph) -> torch.Tensor:
-    """nngp_loglik(new) - nngp_loglik(old) per chain as ONE float64 sum of
-    per-site differences: each summand stays proposal-sized, so no
-    ~1e4-magnitude totals cancel in float32 (mcmc_nngp_update_Gaussian.R
-    :184-186 computes this in doubles)."""
-    z_new = linv_mult(linv_new, field, graph)
-    z_old = linv_mult(linv_old, field, graph)
-    c_new = torch.exp(-log_scale_new)[:, None]
-    c_old = torch.exp(-log_scale_old)[:, None]
-    # log(a/b) for a ~ b as log1p((a-b)/b): the subtraction is exact
-    a, b = linv_new[..., 0], linv_old[..., 0]
-    terms = (torch.log1p((a - b) / b)
-             - 0.5 * (z_new * z_new * c_new - z_old * z_old * c_old))
-    return sum64(terms) - 0.5 * graph.n * (log_scale_new - log_scale_old)
+    """nngp_loglik(new) - nngp_loglik(old) per chain, float64 [C], as ONE
+    sum of the per-site differences ``loglik_diff_terms``: each summand
+    stays proposal-sized, so no ~1e4-magnitude totals cancel
+    (mcmc_nngp_update_Gaussian.R:184-186 computes this in doubles)."""
+    terms = loglik_diff_terms(linv_new, log_scale_new, linv_old,
+                              log_scale_old, field, graph)
+    return terms.sum(-1) - 0.5 * graph.n * (log_scale_new.double()
+                                            - log_scale_old.double())

@@ -47,7 +47,8 @@ from nngp_tpu_torch.models.gaussian import (
     _proposal_chol,
     run_cycle,
 )
-from nngp_tpu_torch.ops.vecchia import ordered_sum, vecchia_linv
+from nngp_tpu_torch.ops.vecchia import (loglik_diff_terms, ordered_sum,
+                                        vecchia_linv)
 from nngp_tpu_torch.parallel.chains import make_sharded_cycle_fn
 from nngp_tpu_torch.parallel.collectives import on_wire
 from nngp_tpu_torch.parallel.halo import (
@@ -201,17 +202,12 @@ def _halo_sufficient(graph, cfg, data, shard: Shard, state, linv, z, u,
     proposal = _propose(cfg, state, state.tk_sufficient, C, z)
     new_ls, _, natural_new = proposal
     new_linv = halo_vecchia_linv(graph, natural_new, shard)
-    owned = shard.rank.owned
     w0 = state.field - state.beta_0[:, None]
-    z_new = rows_linv_mult(new_linv, w0, graph, owned)
-    z_old = rows_linv_mult(linv, w0, graph, owned)
-    c_new = torch.exp(-new_ls)[:, None]
-    c_old = torch.exp(-state.log_scale)[:, None]
-    a, b = new_linv[:, owned, 0], linv[:, owned, 0]
-    terms = (torch.log1p((a - b) / b)
-             - 0.5 * (z_new * z_new * c_new - z_old * z_old * c_old))
+    terms = loglik_diff_terms(new_linv, new_ls, linv, state.log_scale, w0,
+                              graph, shard.rank.owned)
     total, = psum64([terms], shard.group)
-    gp_ratio = total - 0.5 * graph.n * (new_ls - state.log_scale)
+    gp_ratio = total - 0.5 * graph.n * (new_ls.double()
+                                        - state.log_scale.double())
     return _accept(cfg, data, state, linv, proposal, new_linv, gp_ratio, u)
 
 

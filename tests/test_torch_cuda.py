@@ -600,8 +600,13 @@ def test_factor_build_refuses_what_it_does_not_take():
 
     dev = _card()
     g, nat = _build_case("matern_sphere", 5, 3, dev)
+    ge, nate = _build_case("exponential_sphere", 5, 3, dev)
     with pytest.raises(TypeError, match="float32"):
-        V.factor_build_cuda(g, nat.double())
+        V.factor_build_cuda(ge, nate.double())
+    # the Matérn build takes float64 natural params; a float32 one is
+    # widened exactly, so the same values give the same rows
+    assert torch.equal(V.factor_build_cuda(g, nat.double()),
+                       V.factor_build_cuda(g, nat))
     with pytest.raises(ValueError, match="expected"):
         V.factor_build_cuda(g, nat[:, :1].contiguous())
     with pytest.raises(ValueError, match="rows holds"):
@@ -613,7 +618,7 @@ def test_factor_build_refuses_what_it_does_not_take():
         V.vecchia_linv(big, nat[:, :1].contiguous())
     # float64 on the card runs the twin, no launch
     before = V.vecchia_linv.launches
-    assert V.vecchia_linv(g, nat.double()).dtype == torch.float64
+    assert V.vecchia_linv(ge, nate.double()).dtype == torch.float64
     assert V.vecchia_linv.launches == before
 
 
@@ -754,6 +759,28 @@ def test_matern_vecchia_linv_card_matches_cpu():
         assert np.isfinite(got).all()
         assert abs(np.log(got[:, 0]).sum() - np.log(oracle[:, 0]).sum()) < 1e-3
     assert np.abs(card - oracle).max() <= 2 * np.abs(cpu - oracle).max() + 1e-5
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["matern_sphere", "exponential_sphere"])
+def test_collapsed_sufficient_ratio_on_card(family, monkeypatch):
+    """tests/test_torch_collapsed_ratio.py's collapsed state through the
+    card's ``factor_build`` against the float64 reference, within its 0.5
+    in the log ratio."""
+    import test_torch_collapsed_ratio as T
+    from benchmark.reference import setup
+
+    dev = _card()
+    data, mc = T.problem(family, device=dev)
+    mdl = setup.derive(data, family, 5, "cpu")["model"]
+    state = T.chain_state(mc, "collapsed")
+    before = vecchia_linv.launches
+    for step in T.STEPS["collapsed"]:
+        z = T.proposal_z(state, step)
+        got = T.port_ratio(mc, state, z, monkeypatch)
+        want = T.reference_ratio(mdl, state, z, monkeypatch)
+        assert (got - want).abs().max().item() < T.TOL, (step, got, want)
+    assert vecchia_linv.launches - before == 2 * len(T.STEPS["collapsed"])
 
 
 @pytest.mark.gpu

@@ -228,11 +228,18 @@ def test_factor_build_refuses_before_any_launch(monkeypatch, case, err,
 
 def test_cpu_and_float64_never_launch():
     """vecchia_linv on the CPU, and in float64, runs the twin and counts
-    no launch."""
+    no launch.  Rows come in the graph's dtype: a float64 graph gives
+    float64 rows; float64 Matérn natural params on the float32 graph (the
+    sampler's) give float32 rows built in float64, as float32 ones do."""
+    from dataclasses import replace
+
     _, g, natural = _port("matern_sphere")
+    g64 = replace(g, nn_dist2=g.nn_dist2.double(), nn_mask=g.nn_mask.double())
     before = tvec.vecchia_linv.launches
     a = tvec.vecchia_linv(g, natural)
-    b = tvec.vecchia_linv(g, natural.double())
-    assert a.dtype == torch.float32 and b.dtype == torch.float64
+    b = tvec.vecchia_linv(g64, natural.double())
+    c = tvec.vecchia_linv(g, natural.double())
+    assert a.dtype == c.dtype == torch.float32 and b.dtype == torch.float64
     assert tvec.vecchia_linv.launches == before
     np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-3, atol=1e-4)
+    assert torch.equal(c, b.float())
