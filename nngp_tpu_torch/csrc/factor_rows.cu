@@ -39,30 +39,50 @@
 // __fdiv_rn, nvcc's -prec-sqrt and -prec-div defaults; __dsqrt_rn and
 // __ddiv_rn; no fast-math).  m = 0 gives rows of 1.
 //
-// Correlation (factor_build): ops/covariance.py:correlation_from_sqdist op
-// for op: d2 = sum_g d2g[g] / (r_g * r_g) in increasing g, d = sqrt(max(d2,
-// 0)), then expf(-d) (float32, the CUDA math library's expf) or, in
-// float64, the Matérn of ops/covariance.py:_matern (the complementary
-// series at d <= 0.29, 2^(1-nu)/Gamma(nu) d^nu K_nu(d) beyond, exactly 1 at
-// d <= 1e-8) with K_nu by ops/bessel.py (Temme's series at d <= 2, Steed's
+// Correlation (factor_build): d2 = sum_g d2g[g] / (r_g * r_g) in
+// increasing g, d = sqrt(max(d2, 0)), then expf(-d) (float32, the CUDA
+// math library's expf) or, in float64, the Matérn of
+// ops/covariance.py:_matern (the complementary series at d <= 0.29,
+// 2^(1-nu)/Gamma(nu) d^nu K_nu(d) beyond, exactly 1 at d <= 1e-8) with K_nu
+// by ops/bessel.py's algorithms (Temme's 20-term series at d <= 2, Steed's
 // CF2 beyond, frozen at 1e-10 as the float64 twin freezes it, the upward
 // recurrence) on the CUDA math library's double exp, log, sinh, cosh, sin
-// and lgamma, which PyTorch's CUDA float64 kernels call.  Near singular
-// (ranges at a few neighbour distances, nu near 1) the conditional
-// variance d amplifies an ulp of K by 1/d, so a float32 K, however
-// accurate, decides the rows' error; hence Matérn's K stays in float64
-// through the Cholesky.  Every product, sum and quotient of the
-// correlation is pinned with __fmul_rn / __dmul_rn, __fadd_rn / __dadd_rn,
-// __fsub_rn / __dsub_rn and __fdiv_rn / __ddiv_rn, so nvcc contracts none
-// of them into an fma and the order is the twin's as PyTorch's CUDA kernels
-// evaluate it (one rounding an op; a tensor divided by a Python number is a
-// multiply by its reciprocal there, and n / x is (1 / x) * n).  Padded
-// pairs take the identity without an evaluation; the diagonal is 1 (the
-// twin's K * valid2 + eye * (1 - valid2) at d = 0).  CF2's per-lane freeze
-// is a break: a frozen lane's h and s never change again.  The per-chain
-// Matérn quantities (mu, l, the Chebyshev Gamma ratios, lgamma, the
-// series' g) are computed once a chain in each block, by one thread, in
-// the twin's order (matern_chain), so the build stays one launch.
+// and lgamma.  Near singular (ranges at a few neighbour distances, nu near
+// 1) the conditional variance d amplifies an ulp of K by 1/d, so a float32
+// K, however accurate, decides the rows' error; hence Matérn's K stays in
+// float64 through the Cholesky.  The distances, the exponential
+// correlation, CF2 and the per-chain quantities follow
+// ops/covariance.py:correlation_from_sqdist and ops/bessel.py op for op:
+// each product, sum and quotient pinned with __fmul_rn / __dmul_rn,
+// __fadd_rn / __dadd_rn, __fsub_rn / __dsub_rn and __fdiv_rn / __ddiv_rn,
+// so nvcc contracts none of them into an fma and the order is the twin's as
+// PyTorch's CUDA kernels evaluate it (one rounding an op; a tensor divided
+// by a Python number is a multiply by its reciprocal there, and n / x is
+// (1 / x) * n).  CF2 keeps the twin's algorithm and its divisions (its
+// 1/denom depends on x; about a sixth of the pairs at the Heavy-metals
+// fit's states lie beyond 2), and its per-lane freeze is a break: a frozen
+// lane's h and s never change again.
+//
+// Where the Matérn evaluation reassociates: Temme's series and the
+// complementary series carry no division.  Their divisors depend on the
+// chain's nu alone, so each chain's coefficients (Temme's P_i = 1 / prod
+// (j - mu), Q_i = 1 / prod (j + mu), W_i = 1 / (i^2 - mu^2) and 1/i; the
+// series' 1/(1 - nu), 1/((nu + k) k), 1/((k - nu) k)) are built once in
+// each block, an entry a thread (matern_tables), and the per-chain
+// quantities (mu, l, the Chebyshev Gamma ratios, lgamma, the series' g) once
+// for 32 chains, a lane a chain (matern_chain); so the build stays one
+// launch.  An evaluation runs each term on multiplies and fmas against
+// broadcast reads of those tables, takes 1/x once (K_{mu+1} and the
+// recurrence), and after Temme's series closes with (2/Gamma(nu)) (x/2)^mu
+// (x/2)^l K_nu, so it takes one log and no closing exp.  That moves K by
+// about 1e-15 relative in float64 (tests/test_torch_matern.py holds the
+// recurrences to the twin's within 1e-12), far below the one float32
+// rounding of each row entry.  The kernel is held to its plain twin
+// (ops/vecchia.py:vecchia_linv_reference on ops/bessel.py, the yardstick,
+// unchanged) within BUILD_TOL = 1e-4 on the rows, and near singular to a
+// float64 oracle's log-determinant within 1e-5 (tests/test_torch_cuda.py).
+// Padded pairs take the identity without an evaluation; the diagonal is 1
+// (the twin's K * valid2 + eye * (1 - valid2) at d = 0).
 //
 // Bound.  factor_rows reads K once and writes the rows: (k^2 + k) x 4 bytes
 // a (chain, row), 168 B at m = 5.  factor_build reads the geometry once,
@@ -81,7 +101,8 @@
 // group of chains (blockIdx.y), so the geometry is read once a chain group
 // and not once a chain; each chain's rows go out through shared memory.
 // Matérn's evaluation is one out-of-line function, so the unrolled body
-// calls it and does not repeat it.
+// calls it and does not repeat it; its tables sit in static shared memory
+// (sMat), which only the Matérn instantiation holds.
 //
 // Build: whole, or in parts selected by FACTOR_PART (a bit mask: 1 the
 // K-input entry, 2 the fused build's exponential instantiations, 4 its
@@ -104,10 +125,6 @@ namespace {
 
 constexpr int kPart = FACTOR_PART;
 constexpr int kMaxM = 16;
-// The per-chain Matérn quantities (matern_chain): nu, mu = nu - l, l,
-// fact = pi mu / sin(pi mu), gam1, gam2, 1/Gamma(1+mu), 1/Gamma(1-mu),
-// lognorm = (1 - nu) ln 2 - lgamma(nu), g = Gamma(1-nu)/Gamma(1+nu).
-constexpr int kMaternConsts = 10;
 // Enough blocks for about four waves of the 132 SMs before chains are
 // grouped into one block.
 constexpr long long kTargetBlocks = 132 * 16;
@@ -280,13 +297,42 @@ cudaError_t launch_rows(const float* K, const float* mask, float* rows,
 // ---- the Matérn correlation in float64 (ops/covariance.py:_matern,
 // ops/bessel.py, on float64 tensors) ----------------------------------------
 
-struct Matern {
-  double nu, mu, fact, gam1, gam2, gampl, gammi, lognorm, g;
-  int l;
-};
-
 constexpr double kPi = 3.14159265358979323846;    // math.pi
 constexpr double kLn2 = 0.69314718055994530942;   // math.log(2.0)
+
+// The per-chain Matérn quantities (matern_chain), by index.
+enum MaternConst {
+  kNu, kMu, kL,                // nu = mu + l, |mu| <= 1/2
+  kFact, kGam1, kGam2,         // pi mu / sin(pi mu), the Chebyshev gam1, gam2
+  kP0, kQ0,                    // 0.5 / gampl, 0.5 / gammi (beschb's)
+  kLognorm,                    // (1 - nu) ln 2 - lgamma(nu)
+  kNorm,                       // 2 / Gamma(nu) = exp(ln 2 - lgamma(nu))
+  kG,                          // Gamma(1-nu) / Gamma(1+nu)
+  kMaternConsts
+};
+constexpr int kTerms = 20;     // Temme's terms (ops/bessel.py _SERIES_ITERS)
+constexpr int kSeries = 6;     // ops/covariance.py _MATERN_SERIES_K
+constexpr int kChunk = 32;     // chains whose quantities one warp computes
+// The chain's coefficients, one thread an entry: Temme's P, Q, W of the
+// kTerms terms, then the complementary series' 1/(1-nu), its kSeries - 1
+// t2 factors and kSeries - 2 t1 factors.
+constexpr int kTableEntries = 3 * kTerms + 1 + (kSeries - 1) + (kSeries - 2);
+
+// The Matérn instantiation's own shared memory, at fixed addresses so that
+// the out-of-line evaluation reads it with broadcast loads at constant
+// offsets.  term[i - 1] = {P_i, Q_i}, wr[i - 1] = {W_i, 1/i} with
+//   P_i = 1 / prod_{j<=i} (j - mu),  Q_i = 1 / prod_{j<=i} (j + mu),
+//   W_i = 1 / (i^2 - mu^2);
+// comp = {1/(1-nu), 1/((nu+k) k) for k = 1..5, 1/((k-nu) k) for k = 2..5};
+// chain[s] the quantities of the chain c with (c - c0) % kChunk == s among
+// the kChunk chains the block walks next.
+struct MaternShared {
+  double2 term[kTerms];
+  double2 wr[kTerms];
+  double comp[kSeries + kSeries - 2];
+  double chain[kChunk][kMaternConsts];
+};
+__shared__ MaternShared sMat;
 
 // ops/bessel.py _chebev: Clenshaw's d, dd = 2 x d - dd + c, d over the
 // coefficients N-1..1, then x d - dd + c0 / 2 (c0half, that product as
@@ -321,68 +367,108 @@ __device__ void beschb(double mu, double& gam1, double& gam2, double& gampl,
   gammi = add(gam2, mul(mu, gam1));
 }
 
+// ops/bessel.py kv's split nu = mu + l with |mu| <= 1/2.
+__device__ __forceinline__ double split_l(double nu) {
+  return floor(add(nu, 0.5));
+}
+
 // The per-chain quantities at smoothness nu, in the twin's order:
-// ops/bessel.py kv's split nu = mu + l and _temme_small_x's fact,
-// ops/covariance.py _matern's lognorm and _matern_comp_small's g.
+// ops/bessel.py kv's split and _temme_small_x's fact, ops/covariance.py
+// _matern's lognorm and _matern_comp_small's g.
 __device__ void matern_chain(double nu, double* q) {
-  const double l = floor(add(nu, 0.5));
+  const double l = split_l(nu);
   const double mu = sub(nu, l);
   double gam1, gam2, gampl, gammi;
   beschb(mu, gam1, gam2, gampl, gammi);
   const double pimu = mul(mu, kPi);
-  const double fact = fabs(pimu) < 1e-12 ? 1.0 : dvd(pimu, sin(pimu));
-  const double lognorm = sub(mul(sub(1.0, nu), kLn2), lgamma(nu));
+  q[kNu] = nu;
+  q[kMu] = mu;
+  q[kL] = l;
+  q[kFact] = fabs(pimu) < 1e-12 ? 1.0 : dvd(pimu, sin(pimu));
+  q[kGam1] = gam1;
+  q[kGam2] = gam2;
+  q[kP0] = dvd(0.5, gampl);
+  q[kQ0] = dvd(0.5, gammi);
+  const double lg = lgamma(nu);
+  q[kLognorm] = sub(mul(sub(1.0, nu), kLn2), lg);
+  q[kNorm] = exp(sub(kLn2, lg));
   const double mu2 = sub(1.0, nu);
   double u1, u2, gampl2, gammi2;
   beschb(mu2, u1, u2, gampl2, gammi2);
-  const double g = dvd(gammi2, mul(mul(mu2, sub(1.0, mu2)), gampl2));
-  const double v[kMaternConsts] = {nu, mu, l, fact, gam1, gam2, gampl, gammi,
-                                   lognorm, g};
-#pragma unroll
-  for (int i = 0; i < kMaternConsts; ++i) q[i] = v[i];
+  q[kG] = dvd(gammi2, mul(mul(mu2, sub(1.0, mu2)), gampl2));
 }
 
-// K_mu(x), K_{mu+1}(x) for x <= 2, Temme's series (ops/bessel.py
-// _temme_small_x, 20 terms).
-__device__ void temme_small_x(double x, const Matern& c, double& k0,
-                              double& k1) {
-  const double x2 = mul(0.5, x);
+// Entries t, t + T, ... of the chain's coefficients at smoothness nu
+// (MaternShared's term, wr and comp): each a product of at most kTerms
+// factors and one division, so the block's threads build them at once.
+__device__ void matern_tables(double nu, int t, int T) {
+  const double mu = sub(nu, split_l(nu));
+  for (int e = t; e < kTableEntries; e += T) {
+    if (e < 2 * kTerms) {
+      const int i = e % kTerms + 1;
+      const double s = e < kTerms ? -mu : mu;
+      double prod = 1.0;
+      for (int j = 1; j <= i; ++j) prod = mul(prod, add((double)j, s));
+      double2& pq = sMat.term[i - 1];
+      (e < kTerms ? pq.x : pq.y) = dvd(1.0, prod);
+    } else if (e < 3 * kTerms) {
+      const int i = e - 2 * kTerms + 1;
+      const double fi = (double)i;
+      sMat.wr[i - 1] = make_double2(
+          dvd(1.0, sub(fi * fi, mul(mu, mu))), dvd(1.0, fi));
+    } else {
+      const int j = e - 3 * kTerms;   // 0: 1/(1-nu); 1..5: t2's; 6..9: t1's
+      const double fk = (double)(j < kSeries ? j : j - kSeries + 2);
+      sMat.comp[j] =
+          j == 0 ? dvd(1.0, sub(1.0, nu))
+                 : dvd(1.0, mul(j < kSeries ? add(nu, fk) : sub(fk, nu), fk));
+    }
+  }
+}
+
+// K_mu(x), K_{mu+1}(x) for 0.29 < x <= 2, Temme's series (ops/bessel.py
+// _temme_small_x, 20 terms) on the chain's tables: a term is
+//   ff_i = (i ff_{i-1} + p_{i-1} + q_{i-1}) W_i,  c_i = c_{i-1} (x/2)^2 / i,
+//   p_i = (0.5 E / Gamma(1+mu)^-1) P_i,  q_i = (0.5 / (E Gamma(1-mu)^-1)) Q_i,
+// with E = exp(mu dl), dl = -log(x/2): multiplies and fmas, no division.
+// inv_e = 1/E = (x/2)^mu, for the closing.
+__device__ __forceinline__ void temme_small_x(double x, double invx,
+                                              const double* c, double& k0,
+                                              double& k1, double& inv_e) {
+  const double x2 = 0.5 * x;
   const double dl = -log(x2);
-  double e = mul(c.mu, dl);
-  const double fact2 = fabs(e) < 1e-12 ? 1.0 : dvd(sinh(e), e);
-  double ff = mul(c.fact,
-                  add(mul(c.gam1, cosh(e)), mul(mul(c.gam2, fact2), dl)));
-  double total = ff;
-  e = exp(e);
-  double p = dvd(mul(0.5, e), c.gampl);
-  double q = mul(dvd(1.0, mul(e, c.gammi)), 0.5);
-  double cc = 1.0;
-  const double d2 = mul(x2, x2);
-  double total1 = p;
-  const double mm = mul(c.mu, c.mu);
-  for (int i = 1; i <= 20; ++i) {
-    const double fi = (double)i;
-    ff = dvd(add(add(mul(fi, ff), p), q), sub(fi * fi, mm));
-    cc = mul(mul(cc, d2), dvd(1.0, fi));
-    p = dvd(p, sub(fi, c.mu));
-    q = dvd(q, add(c.mu, fi));
-    total = add(total, mul(cc, ff));
-    total1 = add(total1, mul(cc, sub(p, mul(fi, ff))));
+  const double e = c[kMu] * dl;
+  const double fact2 = fabs(e) < 1e-12 ? 1.0 : sinh(e) / e;
+  double ff = c[kFact] * (c[kGam1] * cosh(e) + c[kGam2] * fact2 * dl);
+  const double big_e = exp(e);
+  inv_e = 1.0 / big_e;
+  const double pe = big_e * c[kP0], qe = inv_e * c[kQ0];
+  const double d2 = x2 * x2;
+  double p = pe, q = qe, cc = 1.0, total = ff, total1 = pe;
+#pragma unroll
+  for (int i = 1; i <= kTerms; ++i) {
+    const double2 pq = sMat.term[i - 1], wr = sMat.wr[i - 1];
+    ff = fma((double)i, ff, p + q) * wr.x;
+    cc = cc * d2 * wr.y;
+    p = pe * pq.x;
+    q = qe * pq.y;
+    total = fma(cc, ff, total);
+    total1 = fma(cc, fma(-(double)i, ff, p), total1);
   }
   k0 = total;
-  k1 = mul(total1, mul(dvd(1.0, x), 2.0));
+  k1 = total1 * (2.0 * invx);
 }
 
 // K_mu(x), K_{mu+1}(x) for x > 2, Steed's CF2 (ops/bessel.py _cf2_large_x,
 // at most 40 steps, renormalized every step, frozen once the series
-// increment is below 1e-10 of the sum, the float64 twin's eps).
-__device__ void cf2_large_x(double x, const Matern& c, double& k0,
-                            double& k1) {
+// increment is below 1e-10 of the sum, the float64 twin's eps).  Its
+// divisions stay: 1/denom depends on x.
+__device__ void cf2_large_x(double x, double mu, double& k0, double& k1) {
   double b = mul(add(x, 1.0), 2.0);
   double d = dvd(1.0, b);
   double h = d, delh = d;
   double q1 = 0.0, q2 = 1.0;
-  const double a1 = sub(0.25, mul(c.mu, c.mu));
+  const double a1 = sub(0.25, mul(mu, mu));
   double q = a1, cc = a1, a = -a1;
   double s = add(mul(q, delh), 1.0);
   for (int i = 2; i < 42; ++i) {
@@ -412,49 +498,60 @@ __device__ void cf2_large_x(double x, const Matern& c, double& k0,
   const double kmu =
       dvd(mul(__dsqrt_rn(mul(dvd(1.0, mul(x, 2.0)), kPi)), exp(-x)), s);
   k0 = kmu;
-  k1 = dvd(mul(kmu, sub(add(add(c.mu, x), 0.5), h)), x);
+  k1 = dvd(mul(kmu, sub(add(add(mu, x), 0.5), h)), x);
 }
 
 // 1 - C(x) for x <= 0.29, the ascending series (ops/covariance.py
-// _matern_comp_small).
-__device__ double matern_comp_small(double x, const Matern& c) {
-  const double q = mul(mul(0.25, x), x);
+// _matern_comp_small) on the chain's factors.
+__device__ __forceinline__ double matern_comp_small(double x,
+                                                    const double* c) {
+  const double q = 0.25 * x * x;
   double t2 = 1.0, S2 = 1.0;
-  double t1 = dvd(q, sub(1.0, c.nu));
+  double t1 = q * sMat.comp[0];
   double S1 = t1;
-  for (int k = 1; k < 6; ++k) {
-    const double fk = (double)k;
-    t2 = dvd(mul(t2, q), mul(add(c.nu, fk), fk));
-    S2 = add(S2, t2);
+#pragma unroll
+  for (int k = 1; k < kSeries; ++k) {
+    t2 = t2 * q * sMat.comp[k];
+    S2 += t2;
     if (k >= 2) {
-      t1 = dvd(mul(t1, q), mul(sub(fk, c.nu), fk));
-      S1 = add(S1, t1);
+      t1 = t1 * q * sMat.comp[kSeries + k - 2];
+      S1 += t1;
     }
   }
-  const double xh = fmax(mul(0.5, x), 1e-30);
-  return sub(mul(mul(c.g, exp(mul(mul(c.nu, 2.0), log(xh)))), S2), S1);
+  const double xh = fmax(0.5 * x, 1e-30);
+  return c[kG] * exp(2.0 * c[kNu] * log(xh)) * S2 - S1;
 }
 
-// The Matérn correlation at scaled distance d (ops/covariance.py:_matern);
-// out of line, so the unrolled row body calls it.
-__device__ __noinline__ double matern_corr(double d, Matern c) {
+// The Matérn correlation at scaled distance d (ops/covariance.py:_matern)
+// for the chain in slot `slot` of sMat.chain; out of line, so the unrolled
+// row body calls it.  Beyond the series, 2^(1-nu)/Gamma(nu) x^nu K_nu(x):
+// after Temme's series x^nu = 2^nu (x/2)^mu (x/2)^l, so the closing is
+// (2/Gamma(nu)) (1/E) (x/2)^l K_nu, multiplies alone; after CF2 it is
+// exp(lognorm + nu log x) K_nu.
+__device__ __noinline__ double matern_corr(double d, int slot) {
+  const double* c = sMat.chain[slot];
   if (d <= 1e-8) return 1.0;
   const double x = fmax(d, 1e-8);
-  if (x <= 0.29) return sub(1.0, matern_comp_small(x, c));
-  double k0, k1;
+  if (x <= 0.29) return 1.0 - matern_comp_small(x, c);
+  const double invx = 1.0 / x;
+  const int l = (int)c[kL];
+  double k0, k1, scale;
   if (x <= 2.0) {
-    temme_small_x(fmax(x, 1e-30), c, k0, k1);
+    double inv_e;
+    temme_small_x(x, invx, c, k0, k1, inv_e);
+    scale = c[kNorm] * inv_e;
+    for (int j = 1; j <= l; ++j) scale *= 0.5 * x;
   } else {
-    cf2_large_x(x, c, k0, k1);
+    cf2_large_x(x, c[kMu], k0, k1);
+    scale = exp(add(c[kLognorm], mul(c[kNu], log(x))));
   }
   // upward recurrence K_{j+1} = K_{j-1} + 2 (mu + j) / x K_j up to l
-  for (int j = 1; j <= c.l; ++j) {
-    const double k2 =
-        add(k0, mul(dvd(mul(add(c.mu, (double)j), 2.0), x), k1));
+  for (int j = 1; j <= l; ++j) {
+    const double k2 = fma(2.0 * (c[kMu] + j) * invx, k1, k0);
     k0 = k1;
     k1 = k2;
   }
-  return mul(exp(add(c.lognorm, mul(c.nu, log(x)))), k0);
+  return scale * k0;
 }
 
 // ---- factor_build: K never written ------------------------------------------
@@ -485,7 +582,7 @@ factor_build_kernel(const float* __restrict__ d2g,
   extern __shared__ __align__(16) float smem[];
   float* sD = smem;                    // [T][pad]  the rows' nn_dist2
   float* sO = sD + T * pad;            // [T][ko]   one chain's rows out
-  // [G + kMaternConsts] the chain's squared ranges and Matérn quantities
+  // [G] the chain's squared ranges
   V* sC = reinterpret_cast<V*>(smem + consts_offset(T, pad, ko));
 
   const long long b0 = (long long)blockIdx.x * T;
@@ -512,17 +609,16 @@ factor_build_kernel(const float* __restrict__ d2g,
       sC[t] = mul(r, r);
     }
     if constexpr (kMatern) {
-      if (t == G) matern_chain(natural[(long long)c * n_shape + G], sC + G);
+      // the next kChunk chains' quantities, a lane each, then this chain's
+      // coefficients, an entry a thread
+      if ((c - c0) % kChunk == 0 && t < kChunk && c + t < c1)
+        matern_chain(natural[(long long)(c + t) * n_shape + G],
+                     sMat.chain[t]);
+      matern_tables(natural[(long long)c * n_shape + G], t, T);
     }
     __syncthreads();   // the slab (first chain) and the chain's constants
     V res[k];
     if (t < nb) {
-      Matern mc{};
-      if constexpr (kMatern) {
-        const double* q = sC + G;
-        mc = Matern{q[0], q[1], q[3], q[4], q[5], q[6], q[7], q[8], q[9],
-                    (int)q[2]};
-      }
       auto kef = [&](int i, int j) -> V {
         if (i == j) return V(1);
         const float v = mv[i] * mv[j];
@@ -532,7 +628,7 @@ factor_build_kernel(const float* __restrict__ d2g,
         for (int g = 1; g < G; ++g) d2 = add(d2, dvd(V(p[g]), sC[g]));
         if constexpr (kMatern) {
           const double d = __dsqrt_rn(fmax(d2, 0.0));
-          return mul(matern_corr(d, mc), (double)v);
+          return mul(matern_corr(d, (c - c0) % kChunk), (double)v);
         } else {
           const float d = sqrtf(fmaxf(d2, 0.0f));
           return mul(expf(-d), v);
@@ -548,7 +644,7 @@ factor_build_kernel(const float* __restrict__ d2g,
       const int r = e / k;
       dst[e] = sO[r * ko + (e - r * k)];
     }
-    __syncthreads();   // sO and sC are reused by the next chain
+    __syncthreads();   // sO, sC and sMat are reused by the next chain
   }
 }
 
@@ -565,12 +661,14 @@ cudaError_t launch_build(bool matern, const float* d2g, const float* mask,
   const int pad = (k * k * G) | 1;
   auto smem = [&](int T) {
     return (size_t)consts_offset(T, pad, ko) * sizeof(float) +
-           (size_t)(G + kMaternConsts) * sizeof(double);
+           (size_t)G * sizeof(double);
   };
+  // the Matérn instantiation's static sMat comes on top of the dynamic bytes
+  const size_t fixed = matern ? sizeof(MaternShared) : 0;
   int T = 128;
-  while (T > 32 && smem(T) > 48 * 1024) T /= 2;
+  while (T > 32 && smem(T) + fixed > 48 * 1024) T /= 2;
   const size_t bytes = smem(T);
-  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (bytes + fixed > 227 * 1024) return cudaErrorInvalidValue;
   const long long bx = (R + T - 1) / T;
   long long ny = (kTargetBlocks + bx - 1) / bx;
   ny = ny < C ? ny : C;
@@ -578,7 +676,7 @@ cudaError_t launch_build(bool matern, const float* d2g, const float* mask,
   const int per = (int)((C + ny - 1) / ny);
   const dim3 grid((unsigned int)bx, (unsigned int)((C + per - 1) / per));
   auto go = [&](auto kern, auto nat) {
-    if (bytes > 48 * 1024) {
+    if (bytes + fixed > 48 * 1024) {
       const cudaError_t e = cudaFuncSetAttribute(
           kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
       if (e != cudaSuccess) return e;

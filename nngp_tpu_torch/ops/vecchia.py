@@ -263,7 +263,8 @@ def factor_build_cuda(graph, natural: torch.Tensor,
     ``nn_dist2`` [n, k, k, G] and ``nn_mask`` [n, k], float32, and natural
     shape params [C, n_shape], float32 (the Matérn families: float64, or
     float32 widened), contiguous on one card; launched on the current
-    stream, counted in ``vecchia_linv.launches``."""
+    stream, counted in ``vecchia_linv.launches`` (the Matérn families'
+    launches also in ``factor_build_cuda.matern_launches``)."""
     covfun, d2g, mask = graph.covfun, graph.nn_dist2, graph.nn_mask
     require_supported(covfun)
     matern = covfun.startswith("matern")
@@ -323,7 +324,11 @@ def factor_build_cuda(graph, natural: torch.Tensor,
         raise RuntimeError(f"factor_build kernel launch failed: CUDA error "
                            f"{err}")
     vecchia_linv.launches += 1
+    factor_build_cuda.matern_launches += int(matern)
     return out
+
+
+factor_build_cuda.matern_launches = 0
 
 
 def vecchia_linv(graph, natural_shape: torch.Tensor,

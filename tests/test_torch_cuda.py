@@ -509,6 +509,72 @@ def test_factor_build_kernel_matches_twin(family, m, chains):
     assert rel <= BUILD_TOL, rel
 
 
+@functools.cache
+def _branch_geometry(n=300):
+    """(nn_dist2 [n, 6, 6, 1], nn_mask [n, 6]) of m = 5 neighbour sets with
+    every pairwise distance in [0.9, 2.13]: each row's site at the origin,
+    its five neighbours at radius 0.9-1.1 near the pentagon's corners; the
+    first five rows keep that many neighbours, as a graph's do."""
+    rng = np.random.default_rng(5)
+    ang = 2 * np.pi / 5 * np.arange(5) + rng.uniform(-0.1, 0.1, (n, 5))
+    rad = rng.uniform(0.9, 1.1, (n, 5))
+    pts = np.concatenate([np.zeros((n, 1, 2)), np.stack(
+        [rad * np.cos(ang), rad * np.sin(ang)], -1)], 1)
+    d2 = ((pts[:, :, None] - pts[:, None]) ** 2).sum(-1)[..., None]
+    mask = np.ones((n, 6), np.float32)
+    for r in range(5):
+        mask[r, 1 + r:] = 0
+    return d2.astype(np.float32), mask
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nu_band", [(0.5, 1.0), (1.0, 3.4)])
+@pytest.mark.parametrize("branch", ["temme", "series"])
+def test_factor_build_matern_branch_matches_twin(branch, nu_band):
+    """The Matérn build with every valid pair in one branch of the
+    evaluation, Temme's series (0.29 < d <= 2) or the complementary series
+    (d <= 0.29), each chain's range chosen from the geometry's least and
+    greatest distance: 96 chains at m = 5, nu in ``nu_band`` (above 1 the
+    upward recurrence runs too).  Rows within BUILD_TOL of the twin's,
+    repeat calls bit for bit, each call counted in
+    ``factor_build_cuda.matern_launches``."""
+    from types import SimpleNamespace
+
+    from nngp_tpu_torch.ops import vecchia as V
+
+    dev = _card()
+    d2g, mask = _branch_geometry()
+    d = np.sqrt(d2g[..., 0])
+    pairs = (mask[:, :, None] * mask[:, None, :] > 0) & ~np.eye(6, dtype=bool)
+    lo, hi = d[pairs].min(), d[pairs].max()
+    rng = np.random.default_rng(96)
+    ranges = (rng.uniform(hi / 2 * 1.01, lo / 0.29 * 0.99, 96)
+              if branch == "temme"
+              else rng.uniform(hi / 0.29 * 1.01, hi / 0.29 * 3, 96))
+    nat = np.stack([ranges, rng.uniform(*nu_band, 96)], 1).astype(np.float32)
+    scaled = d[None] / nat[:, :1, None, None].astype(np.float64)
+    inside = ((scaled > 0.29) & (scaled <= 2.0) if branch == "temme"
+              else scaled <= 0.29)
+    assert inside[:, pairs].all()
+    g = SimpleNamespace(covfun="matern_isotropic", d_floor=1e-5, n=len(mask),
+                        nn_dist2=torch.tensor(d2g, device=dev),
+                        nn_mask=torch.tensor(mask, device=dev))
+    nat = torch.tensor(nat, device=dev)
+    before = V.factor_build_cuda.matern_launches
+    got = V.vecchia_linv(g, nat)
+    again = V.vecchia_linv(g, nat)
+    torch.cuda.synchronize()
+    assert V.factor_build_cuda.matern_launches == before + 2
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = V.vecchia_linv_reference(g.covfun, g.nn_dist2, g.nn_mask, nat,
+                                    g.d_floor)
+    finite = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), finite)
+    if nu_band[1] <= 1.0:
+        assert finite.all()
+    assert _rel(got[finite], want[finite]) <= BUILD_TOL
+
+
 def _near_singular_fit(family, device, n=300):
     """The port's fit of tests/test_torch_matern.py's layout for ``family``
     (seed 11, m = 5, 2 chains) and its natural shape params near singular:

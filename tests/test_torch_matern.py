@@ -13,6 +13,8 @@ Tolerances:
   jitted build on the same K (see the test).
 """
 
+import math
+
 import numpy as np
 import jax
 import jax.numpy as jnp
@@ -27,7 +29,7 @@ from nngp_tpu.ops.vecchia import linv_rows_from_K as jax_linv_rows_from_K
 from nngp_tpu.ops.vecchia import vecchia_linv as jax_linv
 from nngp_tpu_torch.interop import from_numpy
 from nngp_tpu_torch.ops import covariance as tcov
-from nngp_tpu_torch.ops.bessel import kv
+from nngp_tpu_torch.ops.bessel import _beschb, _temme_small_x, kv
 from nngp_tpu_torch.ops.numpy_ref import np_vecchia_linv
 from nngp_tpu_torch.ops.vecchia import vecchia_linv
 from nngp_tpu_torch.preprocess.ordering import lonlat_to_xyz
@@ -161,3 +163,130 @@ def test_matern_vecchia_linv_matches_jax(family):
         assert err_t <= 1.5 * err_j + 1e-6, (err_t, err_j)
         logdet_err = np.log(got[c][:, 0]).sum() - np.log(oracle[:, 0]).sum()
         assert abs(logdet_err) < 1e-3
+
+
+# --- the factor build's division-free series (csrc/factor_rows.cu) --------
+
+def _split(nu):
+    """kv's split nu = mu + l, |mu| <= 1/2."""
+    l = torch.floor(nu + 0.5)
+    return l, nu - l
+
+
+def _chain_tables(nu):
+    """csrc/factor_rows.cu:matern_tables at each smoothness of nu [N]:
+    Temme's P, Q, W and 1/i [N, 20] and the complementary series' 1/(1-nu),
+    1/((nu+k) k) (k = 1..5) and 1/((k-nu) k) (k = 2..5)."""
+    _, mu = _split(nu)
+    i = torch.arange(1, 21, dtype=torch.float64)
+    P = 1.0 / torch.cumprod(i - mu[:, None], 1)
+    Q = 1.0 / torch.cumprod(i + mu[:, None], 1)
+    W = 1.0 / (i * i - mu[:, None] * mu[:, None])
+    k = torch.arange(1, 6, dtype=torch.float64)
+    B = 1.0 / ((nu[:, None] + k) * k)
+    D = 1.0 / ((k[1:] - nu[:, None]) * k[1:])
+    return P, Q, W, 1.0 / i, 1.0 / (1.0 - nu), B, D
+
+
+def _temme_on_tables(x, nu):
+    """The kernel's temme_small_x: (K_mu(x), K_{mu+1}(x), (x/2)^mu)."""
+    _, mu = _split(nu)
+    P, Q, W, R, *_ = _chain_tables(nu)
+    gam1, gam2, gampl, gammi = _beschb(mu)
+    pimu = math.pi * mu
+    fact = torch.where(pimu.abs() < 1e-12, torch.ones_like(pimu),
+                       pimu / torch.sin(pimu))
+    x2 = 0.5 * x
+    dl = -torch.log(x2)
+    e = mu * dl
+    fact2 = torch.where(e.abs() < 1e-12, torch.ones_like(e), torch.sinh(e) / e)
+    ff = fact * (gam1 * torch.cosh(e) + gam2 * fact2 * dl)
+    big_e = torch.exp(e)
+    inv_e = 1.0 / big_e
+    pe, qe = big_e * (0.5 / gampl), inv_e * (0.5 / gammi)
+    d2 = x2 * x2
+    p, q, cc, total, total1 = pe, qe, torch.ones_like(x), ff, pe
+    for i in range(1, 21):
+        ff = (i * ff + (p + q)) * W[:, i - 1]
+        cc = cc * d2 * R[i - 1]
+        p, q = pe * P[:, i - 1], qe * Q[:, i - 1]
+        total = total + cc * ff
+        total1 = total1 + cc * (p - i * ff)
+    return total, total1 * (2.0 * (1.0 / x)), inv_e
+
+
+def _comp_on_tables(x, nu):
+    """The kernel's matern_comp_small: 1 - C(x) for x <= 0.29."""
+    _, _, _, _, A, B, D = _chain_tables(nu)
+    mu2 = 1.0 - nu
+    _, _, gampl2, gammi2 = _beschb(mu2)
+    g = gammi2 / (mu2 * (1.0 - mu2) * gampl2)
+    q = 0.25 * x * x
+    t2, S2 = torch.ones_like(x), torch.ones_like(x)
+    t1 = q * A
+    S1 = t1
+    for k in range(1, 6):
+        t2 = t2 * q * B[:, k - 1]
+        S2 = S2 + t2
+        if k >= 2:
+            t1 = t1 * q * D[:, k - 2]
+            S1 = S1 + t1
+    xh = torch.clamp_min(0.5 * x, 1e-30)
+    return g * torch.exp(2.0 * nu * torch.log(xh)) * S2 - S1
+
+
+def _matern_on_tables(x, nu):
+    """The kernel's matern_corr beyond the series and up to 2: the upward
+    recurrence on 1/x, closed with (2/Gamma(nu)) (x/2)^mu (x/2)^l."""
+    l, mu = _split(nu)
+    k0, k1, inv_e = _temme_on_tables(x, nu)
+    scale = torch.exp(math.log(2.0) - torch.lgamma(nu)) * inv_e
+    invx = 1.0 / x
+    for j in range(1, 4):
+        up = l >= j
+        k0, k1 = (torch.where(up, k1, k0),
+                  torch.where(up, k0 + 2.0 * (mu + j) * invx * k1, k1))
+        scale = torch.where(up, scale * (0.5 * x), scale)
+    return scale * k0
+
+
+def _grid(lo, hi):
+    """(x, nu) float64 pairs: 97 x in (lo, hi] against smoothness
+    0.07, 0.17, ..., 3.37 (never a whole number or a half)."""
+    x = torch.linspace(lo, hi, 98, dtype=torch.float64)[1:]
+    nu = torch.arange(0.07, 3.4, 0.1, dtype=torch.float64)
+    return (x[None, :].expand(len(nu), -1).reshape(-1),
+            nu[:, None].expand(-1, len(x)).reshape(-1))
+
+
+def _rel_err(got, want):
+    return ((got - want).abs() / want.abs()).max().item()
+
+
+def test_temme_on_tables_matches_the_twin():
+    """The kernel's Temme recurrence on the chain's tables (P, Q, W, 1/i)
+    against ops/bessel.py's _temme_small_x (divisions each term) over
+    x in (0.29, 2], within 1e-12 relative: the tables' indices."""
+    x, nu = _grid(0.29, 2.0)
+    k0, k1, inv_e = _temme_on_tables(x, nu)
+    w0, w1 = _temme_small_x(x, _split(nu)[1])
+    assert _rel_err(k0, w0) <= 1e-12 and _rel_err(k1, w1) <= 1e-12
+    assert _rel_err(inv_e, (0.5 * x) ** _split(nu)[1]) <= 1e-12
+
+
+def test_comp_series_on_tables_matches_the_twin():
+    """The kernel's complementary series on the chain's factors against
+    ops/covariance.py's _matern_comp_small over x in (0, 0.29], within
+    1e-12 relative."""
+    x, nu = _grid(0.0, 0.29)
+    got = _comp_on_tables(x, nu)
+    want = tcov._matern_comp_small(x, nu)
+    assert _rel_err(got, want) <= 1e-12
+
+
+def test_matern_closing_on_tables_matches_the_twin():
+    """Beyond the series and up to 2: the recurrence on 1/x and the closing
+    (2/Gamma(nu)) (x/2)^mu (x/2)^l K_nu against ops/covariance.py's
+    _matern (exp(lognorm + nu log x) K_nu), within 1e-12 relative."""
+    x, nu = _grid(0.29, 2.0)
+    assert _rel_err(_matern_on_tables(x, nu), tcov._matern(x, nu)) <= 1e-12
